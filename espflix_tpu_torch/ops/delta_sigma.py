@@ -1,0 +1,50 @@
+"""Batched second-order delta-sigma (PDM) audio modulator.
+
+The port of espflix_tpu.ops.delta_sigma.modulate: per PCM sample two
+modulator ticks of 16 PDM bits each (MSB first); CRFB loop with
+a1 = 38973, a2 = 69577, i0 = (i0 + s) >> 1, i1 += i0 -+ a1 - (i2 >> 7),
+i2 += i1 -+ a2, bit = i2 >= 0; (i0, i1, i2) carry across calls.  int32
+arithmetic wraps.
+
+This is the plain eager recurrence: ~2*16*T dependent steps of a few
+small ops each.  Its CUDA kernel (the port of delta_sigma_pallas) is
+still to come; see ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import torch
+
+A1 = int(0x7FFF * 1.18940)   # 38973
+A2 = int(0x7FFF * 2.12340)   # 69577
+SILENCE_WORD = 0xAAAA
+
+
+def init_state(n_lanes: int, device):
+    return torch.zeros((n_lanes, 3), dtype=torch.int32, device=device)
+
+
+def modulate(pcm, state, *, n_samples: int):
+    """pcm: int16/int32[N, T] -> (pdm int32[N, 2*T] of 16-bit words,
+    new state int32[N, 3])."""
+    N, Tn = pcm.shape
+    assert Tn == n_samples
+    s_all = pcm.to(torch.int32) * 2
+    i0 = state[:, 0].clone()
+    i1 = state[:, 1].clone()
+    i2 = state[:, 2].clone()
+    words = torch.empty((N, 2 * Tn), dtype=torch.int32, device=pcm.device)
+    # 0-d int32 operands keep every update in wrapping int32
+    a1p, a1n, a2p, a2n = (torch.tensor(c, dtype=torch.int32,
+                                       device=pcm.device)
+                          for c in (A1, -A1, A2, -A2))
+    for t in range(2 * Tn):
+        i0 = (i0 + s_all[:, t >> 1]) >> 1
+        bits = torch.zeros_like(i0)
+        for _ in range(16):
+            pos = i2 >= 0
+            i1 = i1 + i0 - (i2 >> 7) + torch.where(pos, a1n, a1p)
+            i2 = i2 + i1 + torch.where(pos, a2n, a2p)
+            bits = (bits << 1) | pos
+        words[:, t] = bits
+    return words, torch.stack([i0, i1, i2], dim=1)

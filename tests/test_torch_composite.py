@@ -1,0 +1,108 @@
+"""Composite field pair, parts form: the port (K4's plain form) vs JAX.
+
+Same numpy inputs go through composite_pallas.synthesize_field_pair_parts
+(interpret mode) and the port's synthesize_field_pair_parts, for NTSC
+and PAL: act, strip and chk (incl. the template base) exactly.  The
+tap helpers (assemble_canvas_packed + unpack_fields) must reproduce the
+XLA chain's full uint8 field pair (composite.synthesize_field_pair).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from espflix_tpu_torch.ops import composite as TCO
+
+try:
+    import jax.numpy as jnp
+    from espflix_tpu.ops import composite as JCO
+    from espflix_tpu.ops import composite_pallas as JCP
+except ImportError:     # the card's machine has no jax: gpu tests only
+    jnp = JCO = JCP = None
+
+torch.set_num_threads(1)
+
+
+def _inputs(seed, N=3):
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 256, (N, 192, 352), dtype=np.uint8)
+    u = rng.integers(0, 256, (N, 96, 176), dtype=np.uint8)
+    v = rng.integers(0, 256, (N, 96, 176), dtype=np.uint8)
+    par = rng.integers(0, 2, N).astype(np.int32)
+    osd = rng.integers(0, 256, (N, 16, 80), dtype=np.uint8)
+    # hidden, always-on, mid-fade and full overlays
+    blend = np.array([0, -1, 17, 200][:N] + [5] * max(0, N - 4), np.int32)
+    prog = rng.integers(0, 352, N).astype(np.int32)
+    return y, u, v, par, osd, blend, prog
+
+
+CASES = [(pal, seed) for pal in (False, True) for seed in (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def refs():
+    out = {}
+    for pal, seed in CASES:
+        inp = _inputs(seed)
+        j = JCP.synthesize_field_pair_parts(
+            *[jnp.asarray(a) for a in inp], pal=pal, interpret=True)
+        tmpl, dith, _g = TCO._packed_consts(pal)
+        t = TCO.synthesize_field_pair_parts(
+            *[torch.from_numpy(a) for a in inp], pal=pal,
+            tmpl=torch.from_numpy(tmpl),
+            dither=torch.from_numpy(np.ascontiguousarray(dith)))
+        out[(pal, seed)] = (inp, [np.asarray(a) for a in j],
+                            [a.numpy() for a in t])
+    return out
+
+
+@pytest.mark.parametrize("pal,seed", CASES)
+@pytest.mark.parametrize("i,name", list(enumerate(("act", "strip", "chk"))))
+def test_parts_match_pallas_kernel(refs, pal, seed, i, name):
+    _inp, j, t = refs[(pal, seed)]
+    assert t[i].dtype == j[i].dtype and t[i].shape == j[i].shape, name
+    assert np.array_equal(t[i], j[i]), name
+
+
+@pytest.mark.parametrize("pal", [False, True])
+def test_tap_canvas_matches_xla_field_pair(refs, pal):
+    inp, _j, t = refs[(pal, 1)]
+    tmpl = torch.from_numpy(TCO._packed_consts(pal)[0])
+    canvas = TCO.assemble_canvas_packed(
+        torch.from_numpy(t[0]), torch.from_numpy(t[1]), pal=pal, tmpl=tmpl)
+    fields = TCO.unpack_fields(canvas).numpy()
+    exp = np.asarray(JCO.synthesize_field_pair(
+        *[jnp.asarray(a) for a in inp], pal=pal))
+    assert fields.dtype == np.uint8 and np.array_equal(fields, exp)
+    # chk is the canvas byte sum of both fields
+    assert np.array_equal(
+        t[2], fields.astype(np.int64).sum(axis=(1, 2, 3)).astype(np.int32))
+
+
+@pytest.mark.parametrize("pal", [False, True])
+def test_assemble_and_unpack_match_jax(refs, pal):
+    _inp, j, _t = refs[(pal, 2)]
+    tmpl = TCO._packed_consts(pal)[0]
+    jc = np.asarray(JCP.unpack_fields(JCP.assemble_canvas_packed(
+        jnp.asarray(j[0]), jnp.asarray(j[1]), pal=pal)))
+    tc = TCO.unpack_fields(TCO.assemble_canvas_packed(
+        torch.from_numpy(np.array(j[0])), torch.from_numpy(np.array(j[1])),
+        pal=pal, tmpl=torch.from_numpy(tmpl))).numpy()
+    assert np.array_equal(tc, jc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pal,seed", CASES)
+def test_kernel_matches_plain_on_card(pal, seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    tmpl, dith, _g = TCO._packed_consts(pal)
+    args = [torch.from_numpy(a) for a in _inputs(seed)]
+    consts = dict(tmpl=torch.from_numpy(tmpl),
+                  dither=torch.from_numpy(np.ascontiguousarray(dith)))
+    got = TCO.synthesize_field_pair_parts(
+        *[a.cuda() for a in args], pal=pal,
+        **{k: v.cuda() for k, v in consts.items()})
+    ref = TCO.synthesize_field_pair_parts(*args, pal=pal, **consts)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
