@@ -1,4 +1,4 @@
-"""espflix_tpu_torch: the per-tick decode -> signal chain in PyTorch.
+"""espflix_tpu_torch: the decode -> signal chain and its fleet in PyTorch.
 
 The PyTorch + CUDA port of ``espflix_tpu`` (which stays the bit-exact
 reference).  Plain tensor code is PyTorch; every kernel the JAX package
@@ -18,8 +18,13 @@ Layout mirrors the JAX package:
     ops/mocomp.py       half-pel prediction + compose + put        (K3)
     ops/composite.py    NTSC/PAL composite field pair, parts form  (K4)
     ops/sbc_ops.py      SBC primitives
-    ops/delta_sigma.py  second-order PDM
+    ops/delta_sigma.py  second-order PDM                           (K5)
     runtime/chain.py    FullChain / run_full_chunk: K ticks per call
+    runtime/output.py   per-lane OSD / slide / beep state, PDM state
+    runtime/session.py  incremental TS -> pictures + SBC frames
+    runtime/player.py   PlayerSession: play, pause, FF/RWD, seek, menu
+    runtime/scheduler.py  Fleet.run_chunk_full: sessions -> the chain
+    tools/serve_scenario.py  the serving scenario (--stage full)
 
 Importing this package imports torch and numpy, never jax.
 """

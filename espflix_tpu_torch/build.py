@@ -1,10 +1,11 @@
 """Build and bind the CUDA kernels of csrc/.
 
-All ``csrc/*.cu`` compile with nvcc for sm_90a into ONE shared library
-with a plain C interface, loaded with ctypes.  The build runs at first
-use into ``<repo>/build/kernels-<hash>/`` keyed by a hash of the
-sources and flags, so a fresh checkout builds once and a later process
-reuses the library.  Every C entry point takes device pointers, plain
+Each ``csrc/*.cu`` compiles with its own nvcc process for sm_90a, all
+started together, and the objects link into ONE shared library with a
+plain C interface, loaded with ctypes.  The build runs at first use
+into ``<repo>/build/kernels-<hash>/`` keyed by a hash of the sources
+and flags, so a fresh checkout builds once and a later process reuses
+the library.  Every C entry point takes device pointers, plain
 ints and the CUDA stream, launches on that stream, allocates nothing,
 does not synchronise, and returns cudaGetLastError(); ``launch`` raises
 when that is not cudaSuccess.
@@ -25,8 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 
 # C signatures: "p" a device pointer, "i" an int; every entry point
 # ends with the stream (a pointer) and returns int (cudaError_t)
@@ -35,6 +36,7 @@ SIGNATURES = {
     "esp_idct_T": "p" * 8 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
     "esp_composite_parts": "p" * 12 + "i" * 7,
+    "esp_pdm": "p" * 4 + "i" * 2,
 }
 
 _lib = None
@@ -65,23 +67,41 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/ unless the library for these sources exists."""
+    """Compile csrc/ unless the library for these sources exists: one
+    nvcc per source, all at once, then one link."""
     global build_seconds
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sources() if p.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        jobs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+                   str(work / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            _stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{stderr}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = work / "lib.so"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+               *[str(obj) for obj in sorted(work.glob("*.o"))]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stderr}")
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

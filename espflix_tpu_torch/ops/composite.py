@@ -7,6 +7,8 @@ packed (one int16 = two DAC bytes, little-endian) and in parts form:
 per-field active sample pairs [N, 2, 192, 352], ONE OSD strip
 [N, 16, W2] shared by both fields, and the complete per-lane canvas
 byte sum (the constant template bytes enter as ``_parts_consts``' base).
+``apply_hscroll`` (plain torch; XLA in the JAX package) is the flip
+animation's wraparound blit that the scrolled chain applies first.
 
 The constants (dither planes, line templates and their packed form) are
 numpy code copied from espflix_tpu.ops.composite / composite_pallas and
@@ -262,6 +264,36 @@ def assemble_canvas_packed(act, strip, *, pal: bool, tmpl):
     canvas[:, :, g.active_top:g.active_top + 192, xp:xp + 352] = act
     canvas[:, :, g.osd_top:g.osd_top + OSD_H, :] = strip[:, None]
     return canvas
+
+
+# ease-in/out scroll animator table (video.cpp:1077), indexed by the
+# per-field countdown |animate_index| - 1; sign selects direction
+EASE = np.array([0, 8, 16, 24, 48, 72, 104, 136,
+                 176, 216, 248, 280, 304, 328, 336, 344], np.int32)
+
+
+def apply_hscroll(y, u, v, y2, u2, v2, hscroll):
+    """Per-lane wraparound blit between two frame buffers (the port of
+    espflix_tpu.ops.composite.apply_hscroll): displayed plane = columns
+    [h, W) of the primary frame followed by columns [0, h) of the
+    secondary; a negative hscroll swaps which buffer leads, with
+    h = hscroll + W.  Chroma scrolls by h >> 1.  hscroll: int32[N] in
+    [-W, W]; 0 = no animation."""
+    N, H, W = y.shape
+    neg = hscroll < 0
+    h = torch.where(neg, hscroll + W, hscroll).long()
+    m = neg[:, None, None]
+
+    def wrap(a, b, off):
+        first, second = torch.where(m, b, a), torch.where(m, a, b)
+        w = a.shape[2]
+        cols = (torch.arange(w, device=a.device)[None, :]
+                + off[:, None]) % (2 * w)                   # [N, w]
+        both = torch.cat([first, second], dim=2)            # [N, H, 2w]
+        return torch.gather(both, 2,
+                            cols[:, None, :].expand(N, a.shape[1], w))
+
+    return wrap(y, y2, h), wrap(u, u2, h >> 1), wrap(v, v2, h >> 1)
 
 
 def unpack_fields(packed):

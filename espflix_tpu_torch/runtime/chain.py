@@ -4,15 +4,17 @@ The port of espflix_tpu.runtime.chain (_chunk_scan / run_full_chunk,
 chain.py:68-217).  Each of the K ticks of a chunk runs, in order:
 
     slice scan into dense buffers (K1) -> dequant+IDCT (K2) ->
-    prediction + compose + parity put (K3) -> both composite fields,
-    parts form (K4) -> SBC decode -> beep/starve/silence selects ->
-    delta-sigma PDM -> per-lane checksums (+ taps)
+    prediction + compose + parity put (K3) -> [flip-animation scroll]
+    -> both composite fields, parts form (K4) -> SBC decode ->
+    beep/starve/silence selects -> delta-sigma PDM (K5) -> per-lane
+    checksums (+ taps)
 
 Frame planes, SBC history and modulator state carry from tick to tick;
 the K ticks are a Python loop over the tick body.  Kernels run when the
 tensors are on a CUDA device and their plain PyTorch versions when they
-are on the CPU.  ``FullChain`` holds the constant tables as buffers;
-``run_full_chunk`` is the JAX entry point's signature over it.
+are on the CPU.  ``FullChain`` holds the constant tables as buffers
+(runtime/scheduler.Fleet keeps one for its lifetime);
+``run_full_chunk`` is the JAX entry point's signature over a new one.
 
 Frames are updated in place (see models/mpeg1.dense_compose); the
 presented planes of each tick are new tensors.
@@ -32,6 +34,7 @@ from espflix_tpu_torch.ops import delta_sigma as DS
 from espflix_tpu_torch.ops import idct as IDCT
 from espflix_tpu_torch.ops.intwrap import wrap32
 from espflix_tpu_torch.ops import vlc_scan as VS
+from espflix_tpu_torch.runtime.output import _SIN32
 
 # per-tick xs keys (stacked [K, ...] by the caller)
 DECODE_KEYS = ("words", "start_bits", "rows", "alive", "pic_type",
@@ -42,14 +45,7 @@ DECODE_KEYS = ("words", "start_bits", "rows", "alive", "pic_type",
 DECODE_KEYS_DW = ("lane_words", "row_base") + DECODE_KEYS[1:]
 OUTPUT_KEYS = ("osd", "blend", "progress", "parity", "aud_words",
                "aud_act", "aud_nval", "beep_left", "starved")
-
-# key-feedback beep: the reference's 32-sample sine (negated-sin phase,
-# espflix.ino:109-120), copied from espflix_tpu.runtime.output
-_S = [0, 6392, 12539, 18204, 23169, 27244, 30272, 32137, 32767]
-_SIN32 = np.array(
-    [-_S[i] for i in range(9)] + [-_S[16 - i] for i in range(9, 16)]
-    + [_S[i - 16] for i in range(16, 25)]
-    + [_S[32 - i] for i in range(25, 32)], np.int32)
+SCROLL_KEYS = ("hscroll",)
 
 
 def beep_wave(n_samples: int) -> np.ndarray:
@@ -89,8 +85,9 @@ def state_to_numpy(frames: dict, sbc_state, ds_state):
 def audio_out(pcm, ds_state, beep_left, aud_act, starved, wave):
     """Beep / starve / silence selects around the PDM (chain.py:129-137):
     beeping lanes play `wave` for beep_left*128 samples, starved or idle
-    lanes emit 0xAAAA words and keep their modulator state.  Returns
-    (pdm int32[N, 2S], ds_state)."""
+    lanes emit 0xAAAA words and keep their modulator state.  The PDM is
+    DS.modulate (K5 on CUDA tensors).  Returns (pdm int32[N, 2S],
+    ds_state)."""
     S = wave.shape[0]
     pcm = pcm[:, :S]
     t = torch.arange(S, device=pcm.device)[None, :]
@@ -104,17 +101,15 @@ def audio_out(pcm, ds_state, beep_left, aud_act, starved, wave):
 
 class FullChain(nn.Module):
     """K full decode -> signal ticks per call, with the chain's constant
-    tables as buffers on one device."""
+    tables as buffers on one device.  The SBC channel count is a call
+    argument (a fleet discovers it from its streams)."""
 
-    def __init__(self, *, pal: bool, n_aud_frames: int, channels: int,
-                 device):
+    def __init__(self, *, pal: bool, n_aud_frames: int, device):
         super().__init__()
         self.pal = pal
         self.n_aud_frames = n_aud_frames
-        self.channels = channels
         tmpl, dither, _g = CO._packed_consts(pal)
         lut, _bases, _bits = VS._mega_lut_np()
-        S = n_aud_frames * 128 * max(channels, 1)
 
         def buf(name, a, dtype):
             self.register_buffer(
@@ -128,19 +123,23 @@ class FullChain(nn.Module):
         buf("dither", dither, torch.int16)
         buf("sbc_syn", ST.SYN_8, torch.int32)
         buf("sbc_proto", ST.PROTO_8, torch.int32)
-        buf("beep", beep_wave(S), torch.int16)
+        # long enough for two channels; a call uses its first S samples
+        buf("beep", beep_wave(n_aud_frames * 128 * 2), torch.int16)
 
     def tick(self, x: dict, frames: dict, sbc_state, ds_state, tap_idx,
              *, mb_width: int, mb_height: int, n_lanes: int,
              long_rows: int, steps_long: int, steps_short: int, tap: int,
-             return_planes: bool, win: int, chunk: int,
-             timer=None):
+             return_planes: bool, win: int, chunk: int, channels: int,
+             slide=None, timer=None):
         """One tick: returns (sbc_state, ds_state, out); frames are
-        updated in place.  timer(stage) is a context manager factory
-        used to time stages (chip_smoke.py), or None."""
+        updated in place.  slide: (y, u, v) outgoing-frame planes when
+        the tick is scrolled (x["hscroll"] per lane), else None.
+        timer(stage) is a context manager factory used to time stages
+        (chip_smoke.py), or None."""
         from contextlib import nullcontext
         stage = timer or (lambda _name: nullcontext())
         F = self.n_aud_frames
+        S = F * 128 * max(channels, 1)
 
         with stage("scan"):
             if win:
@@ -160,18 +159,24 @@ class FullChain(nn.Module):
                 x["active"], frames, mb_width=mb_width,
                 mb_height=mb_height, scale_dct=self.scale_dct)
         with stage("composite"):
+            if slide is not None:
+                ye, ue, ve = CO.apply_hscroll(p["y"], p["u"], p["v"],
+                                              *slide, x["hscroll"])
+            else:
+                ye, ue, ve = p["y"], p["u"], p["v"]
             f_act, f_strip, f_sum = CO.synthesize_field_pair_parts(
-                p["y"], p["u"], p["v"], x["parity"], x["osd"], x["blend"],
+                ye, ue, ve, x["parity"], x["osd"], x["blend"],
                 x["progress"], pal=self.pal, tmpl=self.templates,
                 dither=self.dither)
         with stage("sbc"):
             pcm, sbc_state, aerr, _ = dsbc.decode_frames_batched(
                 x["aud_words"], sbc_state, active=x["aud_act"],
-                n_valid=x["aud_nval"], n_frames=F, channels=self.channels,
+                n_valid=x["aud_nval"], n_frames=F, channels=channels,
                 syn=self.sbc_syn, proto=self.sbc_proto)
         with stage("pdm"):
             pdm, ds_state = audio_out(pcm, ds_state, x["beep_left"],
-                                      x["aud_act"], x["starved"], self.beep)
+                                      x["aud_act"], x["starved"],
+                                      self.beep[:S])
 
         out = dict(
             err=err,
@@ -194,8 +199,10 @@ class FullChain(nn.Module):
     def forward(self, xs: dict, frames: dict, sbc_state, ds_state,
                 tap_idx, *, mb_width: int, mb_height: int, n_lanes: int,
                 long_rows: int, steps_long: int, steps_short: int,
-                tap: int, return_planes: bool = True, win: int = 0,
-                chunk: int = 128, timer=None):
+                tap: int, channels: int = 1, return_planes: bool = True,
+                win: int = 0, chunk: int = 128, scrolled: bool = False,
+                slide=None, timer=None):
+        """K ticks (see run_full_chunk); slide is used when scrolled."""
         K = next(iter(xs.values())).shape[0]
         outs = []
         for k in range(K):
@@ -206,6 +213,7 @@ class FullChain(nn.Module):
                 long_rows=long_rows, steps_long=steps_long,
                 steps_short=steps_short, tap=tap,
                 return_planes=return_planes, win=win, chunk=chunk,
+                channels=channels, slide=slide if scrolled else None,
                 timer=timer)
             outs.append(out)
         stacked = {key: torch.stack([o[key] for o in outs])
@@ -225,28 +233,28 @@ def run_full_chunk(xs, frames, sbc_state, ds_state, tap_idx, slide,
     optional stage-timer factory).
 
     xs: dict of [K, ...] tensors (DECODE_KEYS or DECODE_KEYS_DW with
-    win > 0, plus OUTPUT_KEYS; xs_to_torch converts host arrays).
-    tap_idx: int32[max(tap, 1)] lanes whose full signal is returned.
-    slide is unused (scrolling is not ported) and `interpret` has no
-    effect: the device of the tensors picks kernels or plain forms.
+    win > 0, plus OUTPUT_KEYS, plus SCROLL_KEYS when scrolled;
+    xs_to_torch converts host arrays).  tap_idx: int32[max(tap, 1)]
+    lanes whose full signal is returned.  slide: (y, u, v) uint8[N, H, W]
+    outgoing-frame planes the scrolled ticks wrap against (unused
+    unless scrolled).  `interpret` has no effect: the device of the
+    tensors picks kernels or plain forms.
 
     Returns (frames, sbc_state, ds_state, outs) with outs per tick:
     err / audio_err bool[K, N], field_sum / pdm_sum int32[K, N], y/u/v
-    uint8[K, N, H, W] when return_planes (else ysum int32[K, N]),
-    tap_fields uint8[K, tap, 2, L, W] and tap_pdm int32[K, tap, 2S]
-    when tap > 0.  frames are updated in place and returned."""
-    del slide, interpret
-    if scrolled:
-        raise NotImplementedError("scrolled chain (apply_hscroll) is not "
-                                  "ported yet")
+    uint8[K, N, H, W] when return_planes (else ysum int32[K, N]; the
+    presented planes, never the scrolled ones), tap_fields uint8[K, tap,
+    2, L, W] and tap_pdm int32[K, tap, 2S] when tap > 0.  frames are
+    updated in place and returned."""
+    del interpret
     chain = FullChain(pal=pal, n_aud_frames=n_aud_frames,
-                      channels=channels, device=frames["y"].device)
+                      device=frames["y"].device)
     return chain(xs, frames, sbc_state, ds_state, tap_idx,
                  mb_width=mb_width, mb_height=mb_height, n_lanes=n_lanes,
                  long_rows=long_rows, steps_long=steps_long,
-                 steps_short=steps_short, tap=tap,
+                 steps_short=steps_short, tap=tap, channels=channels,
                  return_planes=return_planes, win=win, chunk=chunk,
-                 timer=timer)
+                 scrolled=scrolled, slide=slide, timer=timer)
 
 
 def make_sharded_full_chunk(*args, **kwargs):

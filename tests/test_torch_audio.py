@@ -3,22 +3,32 @@
 Same numpy inputs through models/sbc.decode_frames_batched and
 ops/delta_sigma.modulate of both packages: two calls with carried
 state, error frames, partial tails (n_valid), inactive lanes, mono and
-two-channel frames; and the beep / starve / silence selects of the
-chain (chain.py:126-137) around the PDM.  Exact equality throughout.
+two-channel frames; the PDM (K5's plain form modulate_torch) at the
+chain's tick lengths with full-scale square waves and wrapping states;
+and the beep / starve / silence selects of the chain (chain.py:126-137)
+around the PDM.  Exact equality throughout.  The JAX side of the PDM
+is the package's own plain reference DS.modulate: modulate_pallas in
+interpret mode loops XLA's CPU simplifier for tens of minutes
+(tests/test_pdm_pallas.py).  The `gpu` test holds K5 against
+modulate_torch on the card.
 """
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-from espflix_tpu.models import sbc as JS
-from espflix_tpu.ops import delta_sigma as JDS
-from espflix_tpu.runtime import chain as JCH
 from espflix_tpu.tools.sbc_encode import random_frame
 from espflix_tpu_torch.models import sbc as TS
 from espflix_tpu_torch.ops import delta_sigma as TDS
 from espflix_tpu_torch.runtime import chain as TCH
+
+try:
+    import jax.numpy as jnp
+    from espflix_tpu.models import sbc as JS
+    from espflix_tpu.ops import delta_sigma as JDS
+    from espflix_tpu.runtime import chain as JCH
+except ImportError:     # the card's machine has no jax: gpu tests only
+    jnp = JS = JDS = JCH = None
 
 torch.set_num_threads(1)
 
@@ -98,6 +108,58 @@ def test_pdm_two_calls_carried_state(seed):
         assert tw.dtype == torch.int32 and ts.dtype == torch.int32
         assert np.array_equal(tw.numpy(), np.asarray(jw)), call
         assert np.array_equal(ts.numpy(), np.asarray(js)), call
+
+
+def _pdm_case(seed, N, S):
+    """PCM for one call: square waves at full scale (+-32767, several
+    periods), random full-range samples, silence and a DC rail."""
+    rng = np.random.default_rng(seed)
+    pcm = rng.integers(-32768, 32768, (N, S)).astype(np.int16)
+    t = np.arange(S)
+    for k in range(0, N, 4):
+        period = 2 << (k % 7)
+        pcm[k] = np.where((t // period) & 1, 32767, -32767)
+    pcm[1] = 0
+    pcm[2] = 32767
+    return pcm
+
+
+@pytest.mark.parametrize("N,S", [(8, 1664), (16, 3328)],
+                         ids=["mono_tick", "stereo_tick"])
+def test_pdm_tick_two_calls_wrapping_state(N, S):
+    """The chain's tick lengths (13 SBC frames: 1,664 mono or 3,328
+    stereo samples), two calls with the state carried, starting from
+    random states in +-2e6 (the int32 adds wrap)."""
+    rng = np.random.default_rng(N)
+    st = rng.integers(-2_000_000, 2_000_000, (N, 3)).astype(np.int32)
+    js, ts = jnp.asarray(st), torch.from_numpy(st.copy())
+    for call in range(2):
+        pcm = _pdm_case(10 * N + call, N, S)
+        jw, js = JDS.modulate(jnp.asarray(pcm), js, n_samples=S)
+        tw, ts = TDS.modulate_torch(torch.from_numpy(pcm), ts, n_samples=S)
+        assert tw.shape == (N, 2 * S) and tw.dtype == torch.int32
+        assert np.array_equal(tw.numpy(), np.asarray(jw)), call
+        assert np.array_equal(ts.numpy(), np.asarray(js)), call
+    assert ((tw.numpy() >= 0) & (tw.numpy() < 1 << 16)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,S", [(5, 7), (40, 100), (1024, 1664)])
+def test_kernel_matches_plain_on_card(N, S):
+    """K5 (csrc/pdm.cu) against modulate_torch on the card, with lane
+    and sample counts off the kernel's 32-lane / 32-sample tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(S)
+    pcm = torch.from_numpy(_pdm_case(S, N, S)).cuda()
+    st = torch.from_numpy(rng.integers(-2_000_000, 2_000_000, (N, 3))
+                          .astype(np.int32)).cuda()
+    before = TDS.launches
+    got = TDS.modulate(pcm, st, n_samples=S)
+    ref = TDS.modulate_torch(pcm, st, n_samples=S)
+    assert TDS.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
 
 
 def _jax_audio_out(pcm, ds, beep_left, aud_act, starved, S):

@@ -5,6 +5,8 @@ Same numpy inputs go through composite_pallas.synthesize_field_pair_parts
 and PAL: act, strip and chk (incl. the template base) exactly.  The
 tap helpers (assemble_canvas_packed + unpack_fields) must reproduce the
 XLA chain's full uint8 field pair (composite.synthesize_field_pair).
+The flip animation's wraparound blit apply_hscroll must equal
+composite.apply_hscroll at the edge scrolls and at random ones.
 """
 
 import numpy as np
@@ -89,6 +91,44 @@ def test_assemble_and_unpack_match_jax(refs, pal):
         torch.from_numpy(np.array(j[0])), torch.from_numpy(np.array(j[1])),
         pal=pal, tmpl=torch.from_numpy(tmpl))).numpy()
     assert np.array_equal(tc, jc)
+
+
+HSCROLL_CASES = {
+    "zero_and_small": [0, 1, -1, 2, -2, 175],
+    "half_and_edges": [-175, 351, -351, 352, -352, 0],
+    "random1": 1,
+    "random2": 2,
+}
+
+
+@pytest.mark.parametrize("case", list(HSCROLL_CASES))
+def test_apply_hscroll_matches_jax(case):
+    hs = HSCROLL_CASES[case]
+    rng = np.random.default_rng(len(case))
+    if isinstance(hs, int):
+        hs = np.random.default_rng(hs).integers(-352, 353, 6)
+    hs = np.asarray(hs, np.int32)
+    planes = [rng.integers(0, 256, (6,) + shp, dtype=np.uint8)
+              for shp in ((192, 352), (96, 176), (96, 176)) * 2]
+    j = JCO.apply_hscroll(*[jnp.asarray(a) for a in planes],
+                          jnp.asarray(hs))
+    t = TCO.apply_hscroll(*[torch.from_numpy(a) for a in planes],
+                          torch.from_numpy(hs))
+    for a, b in zip(t, j):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+    # hscroll 0 shows the primary frame, +-352 the secondary one
+    for lane, h in enumerate(hs):
+        if h == 0:
+            assert np.array_equal(t[0][lane].numpy(), planes[0][lane])
+        if abs(h) == 352:
+            assert np.array_equal(t[0][lane].numpy(), planes[3][lane])
+
+
+def test_ease_table_matches_jax():
+    assert np.array_equal(TCO.EASE, JCO.EASE)
+    assert TCO.EASE.dtype == JCO.EASE.dtype
 
 
 @pytest.mark.gpu
