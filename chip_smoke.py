@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's chain and serving path once on one CUDA card.
+"""Drive the PyTorch port's chain and serving paths once on one CUDA card.
 
     python3 chip_smoke.py        # 1024-lane chain, 256-lane serving
     python3 chip_smoke.py --lanes 64 --ticks 3 --reps 1
@@ -12,8 +12,10 @@ line is printed):
    the card's name and power limit (nvidia-smi);
 2. build: compiles espflix_tpu_torch/csrc/*.cu for sm_90a (build/), one
    nvcc per source, all at once, and the sessions' native TS demuxer;
-3. kernels: each of K1-K5 against its plain PyTorch version on the card
-   at the main path's shapes, exact equality, CUDA-event medians;
+3. kernels: each of the eight entry points -- K1-K5 and the lane-minor
+   K1F, K2F, K3F -- against its plain PyTorch version on the card at
+   the main path's shapes (the bench tick's 1,024 lanes at 352x192),
+   exact equality, CUDA-event medians, and the bound of its work;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -29,9 +31,17 @@ line is printed):
 6. serving B: the same lanes, service and HTTP server, 8 ticks, once
    with the kernels and once through the plain forms: every TickResult
    and carry identical;
-7. the total seconds, the card's name and power limit, one JSON line
-   with the kernels' numbers (launches: serving A's), and the final
-   {"ok": true, ...} line.
+7. decode-only serving: serve_scenario --stage decode over the same
+   HTTP service at the same lanes, 16 ticks pipelined (tick_submit /
+   tick_collect) and 16 chunked (run_chunk, K = 4), two injected faults
+   each: every lane decodes, the faults are resynced, and K1, K2, K3,
+   K1F, K2F and K3F all launched; then 4 ticks per dispatch, and 4 of
+   a one-lane fleet (the small-fleet branch), through the kernels and
+   through the plain forms: every TickResult field and carry identical;
+8. the total seconds, the card's name and power limit, one JSON line
+   with the kernels' numbers (launches: serving A's for K1-K5, the
+   decode-only serving's for K1F-K3F), and the final {"ok": true, ...}
+   line.
 
 Imports nothing of JAX.
 """
@@ -51,6 +61,11 @@ import time
 # chain ticks compared with the plain path on the card: the plain PDM
 # and the plain scan take seconds a tick at 1,024 lanes
 PLAIN_TICKS = 6
+# an H100 SXM's HBM3 rate (NVIDIA's data sheet), for the bytes bound
+HBM_BPS = 3.35e12
+# latency of one dependent 32-bit integer operation, in SM clock
+# cycles (an assumption of the K5 bound; see PERF.md)
+INT_DEP_CYCLES = 4
 
 
 def log(*a):
@@ -107,8 +122,8 @@ def require_equal(name, pairs):
 
 @contextlib.contextmanager
 def plain_forms():
-    """Route the chain's five kernel wrappers to their plain PyTorch
-    versions (for the on-card comparison runs)."""
+    """Route the eight kernel wrappers to their plain PyTorch versions
+    (for the on-card comparison runs)."""
     from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
@@ -120,7 +135,11 @@ def plain_forms():
              (MC, "predict_compose_put", MC.predict_compose_put_torch),
              (CO, "synthesize_field_pair_parts",
               CO.synthesize_field_pair_parts_torch),
-             (DS, "modulate", DS.modulate_torch)]
+             (DS, "modulate", DS.modulate_torch),
+             (VS, "run_scan_bucketed", VS.run_scan_bucketed_torch),
+             (IDCT, "block_residuals_flat", IDCT.block_residuals_flat_torch),
+             (MC, "predict_compose_put_flat",
+              MC.predict_compose_put_flat_torch)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -170,44 +189,88 @@ def tap_sums_match(rs, tap_lanes):
                                      "!= field_sum / pdm_sum")
 
 
-def record_results(fleet) -> list:
-    """Collect every TickResult fleet.run_chunk_full returns."""
+def record_results(fleet, method: str = "run_chunk_full") -> list:
+    """Collect every TickResult that fleet.<method> returns (a list, or
+    one TickResult for tick_collect)."""
     rs = []
-    run = fleet.run_chunk_full
+    run = getattr(fleet, method)
 
-    def recorded(n_ticks, **kw):
-        out = run(n_ticks, **kw)
-        rs.extend(out)
+    def recorded(*a, **kw):
+        out = run(*a, **kw)
+        rs.extend(out if isinstance(out, list) else [out])
         return out
-    fleet.run_chunk_full = recorded
+    setattr(fleet, method, recorded)
     return rs
 
 
-def kernel_modules() -> dict:
-    """The five kernel wrappers' modules, by kernel name."""
+def kernel_counters() -> dict:
+    """Kernel name -> (wrapper module, its launch-count attribute)."""
     from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
     from espflix_tpu_torch.ops import mocomp as MC
     from espflix_tpu_torch.ops import vlc_scan as VS
-    return {"K1_slice_scan_dense": VS, "K2_dequant_idct": IDCT,
-            "K3_predict_compose_put": MC, "K4_composite_field_pair": CO,
-            "K5_pdm": DS}
+    return {"K1_slice_scan_dense": (VS, "launches"),
+            "K2_dequant_idct": (IDCT, "launches"),
+            "K3_predict_compose_put": (MC, "launches"),
+            "K4_composite_field_pair": (CO, "launches"),
+            "K5_pdm": (DS, "launches"),
+            "K1F_slice_scan_flat": (VS, "launches_flat"),
+            "K2F_dequant_idct_flat": (IDCT, "launches_flat"),
+            "K3F_predict_compose_put_flat": (MC, "launches_flat")}
+
+
+CHAIN_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
+                 "K3_predict_compose_put", "K4_composite_field_pair",
+                 "K5_pdm")
+DECODE_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
+                  "K3_predict_compose_put", "K1F_slice_scan_flat",
+                  "K2F_dequant_idct_flat", "K3F_predict_compose_put_flat")
+FLAT_KERNELS = DECODE_KERNELS[3:]
 
 
 def reset_counts():
-    for m in kernel_modules().values():
-        m.launches = 0
+    for m, attr in kernel_counters().values():
+        setattr(m, attr, 0)
 
 
-def read_counts(label) -> dict:
-    """The launch counts since reset_counts(); raises unless every
-    kernel launched."""
-    counts = {name: m.launches for name, m in kernel_modules().items()}
+def read_counts(label, names) -> dict:
+    """The launch counts of `names` since reset_counts(); raises unless
+    each of them launched."""
+    counters = kernel_counters()
+    counts = {n: getattr(*counters[n]) for n in names}
     for name, c in counts.items():
         if c < 1:
             raise AssertionError(f"{label}: {name} never launched")
     return counts
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compose_bytes(res, recs, active, frames, presented) -> int:
+    """K3 / K3F: residuals, records, flags and both frame slots read; the
+    parity slot and the presented planes written."""
+    planes = [presented[k] for k in "yuv"]
+    return (nbytes(res, recs, active, frames["parity"],
+                   *[frames[k] for k in "yuv"]) + 2 * nbytes(*planes))
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def bound(moved_bytes: int, chain_ms: float = 0.0):
+    """(bound_ms, bound_by): the least time of the work -- the bytes it
+    must move (each input read once, each output written once) at
+    HBM_BPS, or, where larger, a dependent-operation chain's time."""
+    ms = moved_bytes / HBM_BPS * 1e3
+    return (chain_ms, "operations") if chain_ms > ms else (ms, "bytes")
 
 
 @contextlib.contextmanager
@@ -238,16 +301,17 @@ def serve_phase_a(dev, url: str, lanes: int, ticks: int, smi: str,
     import torch
     from espflix_tpu_torch.tools import serve_scenario as SS
 
-    fleet = SS.build_fleet(url, lanes, 2, device=dev)
+    fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
     rs = record_results(fleet)
     torch.cuda.synchronize()
     reset_counts()
     stats, snap = SS.run_scenario(fleet, ticks, seed=seed, faults=2,
-                                  snapshot_at=ticks // 2)
-    counts = read_counts("serving A")
-    fleet2 = SS.build_fleet(url, lanes, 2, device=dev)
+                                  snapshot_at=ticks // 2, dispatch="full")
+    counts = read_counts("serving A", CHAIN_KERNELS)
+    fleet2 = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
     restored = fleet2.restore(snap)
-    rstats, _ = SS.run_scenario(fleet2, 4, seed=seed + 1, faults=0)
+    rstats, _ = SS.run_scenario(fleet2, 4, seed=seed + 1, faults=0,
+                                dispatch="full")
     tap_sums_match(rs, (0,))
     if int(stats.frames_per_lane.min()) < 1:
         raise AssertionError("serving A: a lane decoded no frame")
@@ -284,11 +348,11 @@ def serve_phase_b(dev, url: str, lanes: int, ticks: int = 8,
     tap_lanes = (0, lanes // 2 + 1)
     runs = []
     for plain in (False, True):
-        fleet = SS.build_fleet(url, lanes, 2, device=dev)
+        fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
         rs = record_results(fleet)
         with plain_forms() if plain else contextlib.nullcontext():
             SS.run_scenario(fleet, ticks, seed=seed, faults=1,
-                            tap_lanes=tap_lanes)
+                            tap_lanes=tap_lanes, dispatch="full")
         torch.cuda.synchronize()
         runs.append((fleet, rs))
     (fk, rk), (fp, rp) = runs
@@ -320,6 +384,179 @@ def serve_phase_b(dev, url: str, lanes: int, ticks: int = 8,
         f"{tap_lanes})")
 
 
+def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
+                 mbh: int) -> list:
+    """K1F, K2F and K3F against their plain versions on the bench tick
+    `x` (run_chunk's scan configuration: two buckets of 2,048 / 512
+    steps in chunks of 128, long_rows from bucket_policy); returns
+    their kernel entries."""
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import idct as IDCT
+    from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    from espflix_tpu_torch.runtime.scheduler import bucket_policy
+
+    out = []
+    N = x["active"].shape[0]
+    args = [x[k] for k in M.SCAN_KEYS]
+    need = int(((x["pic_type"] == 1) & (x["alive"] == 1)).sum())
+    long_rows, s_long, s_short = bucket_policy(
+        max(need, 8), args[0].shape[0], steps_long=2048, steps_short=512)
+    skw = dict(mb_width=mbw, mb_height=mbh, n_lanes=N, long_rows=long_rows,
+               steps_long=s_long, steps_short=s_short, chunk=128,
+               lut=chain.scan_lut, zigzag=chain.zigzag)
+    got = VS.run_scan_bucketed(*args, **skw)
+    ref = VS.run_scan_bucketed_torch(*args, **skw)
+    err = require_equal("K1F scan", zip(got, ref))
+    if got[3].any():
+        raise AssertionError("K1F: lane errors on well-formed content")
+    out.append(dict(
+        name="K1F_slice_scan_flat", route="cuda",
+        source="espflix_tpu_torch/csrc/scan.cu",
+        replaces="espflix_tpu/ops/vlc_scan_pallas.py:55",
+        max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: VS.run_scan_bucketed(*args, **skw), reps),
+        plain_ms=time_ms(lambda: VS.run_scan_bucketed_torch(*args, **skw),
+                         max(1, reps // 2))))
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
+        *args, chain.scan_lut, chain.zigzag, *got))
+    log(f"[kernel] {out[-1]} (long_rows {long_rows}, steps "
+        f"{s_long}/{s_short})")
+
+    coeffs, recs, nfinal = got[:3]
+    idct_args = (coeffs, recs, nfinal, x["intra_q"], x["non_intra_q"],
+                 chain.scale_dct)
+    res_k = IDCT.block_residuals_flat(*idct_args)
+    res_p = IDCT.block_residuals_flat_torch(*idct_args)
+    out.append(dict(
+        name="K2F_dequant_idct_flat", route="cuda",
+        source="espflix_tpu_torch/csrc/idct.cu",
+        replaces="espflix_tpu/ops/idct_pallas.py:86",
+        max_abs_err=require_equal("K2F idct", [(res_k, res_p)]),
+        library_ms=None,
+        ms=time_ms(lambda: IDCT.block_residuals_flat(*idct_args), reps),
+        plain_ms=time_ms(lambda: IDCT.block_residuals_flat_torch(
+            *idct_args), reps)))
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(*idct_args,
+                                                            res_k))
+    log(f"[kernel] {out[-1]}")
+
+    fr_k = rand_frames()
+    fr_p = {k: v.clone() for k, v in fr_k.items()}
+    active = x["active"].clone()
+    active[5::13] = False                      # some inactive lanes
+    mc_kw = dict(mb_width=mbw, mb_height=mbh)
+    pk = MC.predict_compose_put_flat(res_k, recs, active, fr_k, **mc_kw)
+    pp = MC.predict_compose_put_flat_torch(res_k, recs, active, fr_p,
+                                           **mc_kw)
+    err = require_equal("K3F compose", [(pk[k], pp[k]) for k in "yuv"]
+                        + [(fr_k[k], fr_p[k]) for k in "yuv"])
+    out.append(dict(
+        name="K3F_predict_compose_put_flat", route="cuda",
+        source="espflix_tpu_torch/csrc/compose.cu",
+        replaces="espflix_tpu/ops/mocomp_pallas.py:92,161",
+        max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: MC.predict_compose_put_flat(
+            res_k, recs, active, fr_k, **mc_kw), reps),
+        plain_ms=time_ms(lambda: MC.predict_compose_put_flat_torch(
+            res_k, recs, active, fr_p, **mc_kw), reps)))
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(
+        compose_bytes(res_k, recs, active, fr_k, pk))
+    log(f"[kernel] {out[-1]}")
+    torch.cuda.synchronize()
+    return out
+
+
+def decode_serving(dev, url: str, lanes: int, smi: str, ticks: int = 16,
+                   seed: int = 0) -> dict:
+    """serve_scenario --stage decode over HTTP, `ticks` ticks pipelined
+    (tick_submit / tick_collect) and chunked (run_chunk, K = 4), two
+    injected faults each: every lane decodes, the faults are caught and
+    resynced, and every decode kernel launched.  Returns the counts."""
+    import torch
+    from espflix_tpu_torch.tools import serve_scenario as SS
+
+    torch.cuda.synchronize()
+    reset_counts()
+    for dispatch in ("pipelined", "chunk"):
+        fleet = SS.build_fleet(url, lanes, 2, device=dev)
+        stats, _ = SS.run_scenario(fleet, ticks, seed=seed, faults=2,
+                                   dispatch=dispatch)
+        torch.cuda.synchronize()
+        if int(stats.frames_per_lane.min()) < 1:
+            raise AssertionError(f"decode {dispatch}: a lane decoded no "
+                                 "frame")
+        if stats.errors < 1 or stats.resyncs < 1:
+            raise AssertionError(
+                f"decode {dispatch}: the injected faults were not caught "
+                f"({stats.errors} errors, {stats.resyncs} resyncs)")
+        tm = fleet.timers.acc
+        split = {k: round(1000 * v / ticks, 2) for k, v in tm.items()}
+        host = 1000 * stats.wall_s / ticks - sum(split.values())
+        log(f"[decode {dispatch}] {lanes} lanes x {ticks} ticks over HTTP: "
+            f"{1000 * stats.wall_s / ticks:.1f} ms/tick wall; timers "
+            f"ms/tick {split}; untimed host (gather, control) "
+            f"{host:.1f} ms/tick; frames {stats.frames}, min/lane "
+            f"{int(stats.frames_per_lane.min())}, audio lane-ticks "
+            f"{stats.audio_lanes}, errors {stats.errors}, resyncs "
+            f"{stats.resyncs}, actions {stats.actions} | {smi}")
+    counts = read_counts("decode serving", DECODE_KERNELS)
+    log(f"[decode serving] launches {counts}")
+    return counts
+
+
+def decode_parity(dev, url: str, lanes: int, ticks: int = 4,
+                  seed: int = 0):
+    """The same lanes for `ticks` ticks per dispatch through the kernels
+    and through the plain forms, plus a one-lane fleet (the small-fleet
+    branch): every TickResult field and carry identical."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.tools import serve_scenario as SS
+
+    keys = ("video_lanes", "pts", "errors", "audio_lanes", "pcm",
+            "pcm_samples", "audio_starved", "audio_errors")
+    for label, n, dispatch, method in (
+            ("pipelined", lanes, "pipelined", "tick_collect"),
+            ("chunk", lanes, "chunk", "run_chunk"),
+            ("one-lane tick", 1, "pipelined", "tick_collect")):
+        runs = []
+        for plain in (False, True):
+            fleet = SS.build_fleet(url, n, 2, device=dev)
+            rs = record_results(fleet, method)
+            reset_counts()
+            with plain_forms() if plain else contextlib.nullcontext():
+                SS.run_scenario(fleet, ticks, seed=seed, faults=1,
+                                dispatch=dispatch)
+            torch.cuda.synchronize()
+            counts = {k: getattr(*c) for k, c in kernel_counters().items()}
+            runs.append((fleet, rs, counts))
+        (fk, rk, ck), (fp, rp, cp) = runs
+        if len(rk) != ticks or len(rp) != ticks:
+            raise AssertionError(f"decode {label}: expected {ticks} results")
+        for t, (a, b) in enumerate(zip(rk, rp)):
+            for key in keys:
+                if not np.array_equal(getattr(a, key), getattr(b, key)):
+                    raise AssertionError(f"decode {label} tick {t}: {key} "
+                                         "kernel != plain")
+            require_equal(f"decode {label} tick {t} planes",
+                          [(a.y, b.y), (a.u, b.u), (a.v, b.v)])
+        require_equal(f"decode {label} carries",
+                      [(fk.frames[k], fp.frames[k])
+                       for k in ("y", "u", "v", "parity")]
+                      + [(fk.sbc_state, fp.sbc_state)])
+        if any(cp.values()):
+            raise AssertionError(f"decode {label}: the plain run launched "
+                                 f"kernels {cp}")
+        if n == 1 and min(ck[k] for k in FLAT_KERNELS) < 1:
+            raise AssertionError(f"decode {label}: the small-fleet branch "
+                                 f"did not launch K1F-K3F ({ck})")
+        log(f"[decode {label}] {n} lanes x {ticks} ticks over HTTP: kernel "
+            f"path == plain path ({len(keys) + 3} TickResult fields x "
+            f"{ticks} + 4 carries; kernel launches {ck})")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lanes", type=int, default=1024)
@@ -342,6 +579,7 @@ def main() -> int:
                            "/usr/local/cuda/bin/nvcc --version"],
                           capture_output=True, text=True).stdout
     smi = nvidia_smi_line()
+    sm_clock_hz = max_sm_clock_hz()
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"[device] nvcc: {nvcc.strip().splitlines()[-1] if nvcc else '?'}")
@@ -415,11 +653,13 @@ def main() -> int:
         name="K1_slice_scan_dense", route="cuda",
         source="espflix_tpu_torch/csrc/scan.cu",
         replaces="espflix_tpu/ops/vlc_scan_pallas.py:55",
-        max_abs_err=err,
+        max_abs_err=err, library_ms=None,
         ms=time_ms(lambda: VS.run_scan_bucketed_dense(*scan_args,
                                                      **scan_kw), args.reps),
         plain_ms=time_ms(lambda: VS.run_scan_bucketed_dense_torch(
             *scan_args, **scan_kw), max(1, args.reps // 2))))
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
+        *scan_args, chain.scan_lut, chain.zigzag, *got))
     log(f"[kernel] {kernels[-1]}")
 
     coeffs_T, recs, nfinal = got[:3]
@@ -434,9 +674,12 @@ def main() -> int:
         source="espflix_tpu_torch/csrc/idct.cu",
         replaces="espflix_tpu/ops/idct_pallas.py:171",
         max_abs_err=require_equal("K2 idct", [(res_k, res_p)]),
+        library_ms=None,
         ms=time_ms(lambda: IDCT.block_residuals_T(*idct_args), args.reps),
         plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
                          args.reps)))
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
+        *idct_args, res_k))
     log(f"[kernel] {kernels[-1]}")
 
     # K3 on a P-heavy tick with random reference planes and parities
@@ -464,11 +707,13 @@ def main() -> int:
         name="K3_predict_compose_put", route="cuda",
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:975,1084",
-        max_abs_err=err,
+        max_abs_err=err, library_ms=None,
         ms=time_ms(lambda: MC.predict_compose_put(res_k, recs, active,
                                                   fr_k, **mc_kw), args.reps),
         plain_ms=time_ms(lambda: MC.predict_compose_put_torch(
             res_k, recs, active, fr_p, **mc_kw), args.reps)))
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
+        compose_bytes(res_k, recs, active, fr_k, pk))
     log(f"[kernel] {kernels[-1]}")
 
     comp_args = (pk["y"], pk["u"], pk["v"], x["parity"], x["osd"],
@@ -486,11 +731,13 @@ def main() -> int:
         name="K4_composite_field_pair", route="cuda",
         source="espflix_tpu_torch/csrc/composite.cu",
         replaces="espflix_tpu/ops/composite_pallas.py:67",
-        max_abs_err=err,
+        max_abs_err=err, library_ms=None,
         ms=time_ms(lambda: CO.synthesize_field_pair_parts(
             *comp_args, **comp_kw), args.reps),
         plain_ms=time_ms(lambda: CO.synthesize_field_pair_parts_torch(
             *comp_args, **comp_kw), args.reps)))
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
+        *comp_args, chain.templates, chain.dither, *ck))
     log(f"[kernel] {kernels[-1]}")
 
     # K5 on the tick's decoded SBC PCM (1,664 samples a lane) from a
@@ -517,7 +764,7 @@ def main() -> int:
         name="K5_pdm", route="cuda",
         source="espflix_tpu_torch/csrc/pdm.cu",
         replaces="espflix_tpu/ops/delta_sigma_pallas.py:61",
-        max_abs_err=err,
+        max_abs_err=err, library_ms=None,
         ms=time_ms(lambda: DS.modulate(pcm, st, n_samples=S), args.reps),
         plain_ms=None))
     # the plain PDM takes seconds: one run, already warm from the check
@@ -527,7 +774,16 @@ def main() -> int:
     b.record()
     torch.cuda.synchronize()
     kernels[-1]["plain_ms"] = a.elapsed_time(b)
-    log(f"[kernel] {kernels[-1]}")
+    # each lane is one chain of 2 * 16 * S bit steps, each three
+    # dependent integer operations (shift, add into i1, add into i2)
+    steps = 2 * 16 * S
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
+        nbytes(pcm, st, *DS.modulate(pcm, st, n_samples=S)),
+        steps * 3 * INT_DEP_CYCLES / sm_clock_hz * 1e3)
+    log(f"[kernel] {kernels[-1]} (chain of {steps} steps at "
+        f"{sm_clock_hz / 1e6:.0f} MHz)")
+
+    kernels += flat_kernels(x, chain, rand_frames, args.reps, mbw, mbh)
 
     # ---- 4. the chain ----------------------------------------------------
     def fresh_state():
@@ -571,7 +827,8 @@ def main() -> int:
                                              None, timer=timer, **run_kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        chain_counts[label] = counts = read_counts(f"chain {label}")
+        chain_counts[label] = counts = read_counts(f"chain {label}",
+                                                   CHAIN_KERNELS)
         if outs["err"].any():
             raise AssertionError(f"{label}: lane errors "
                                  f"{int(outs['err'].sum())}")
@@ -606,7 +863,7 @@ def main() -> int:
     reset_counts()
     CH.run_full_chunk(xs_s, fr, sb, ds, tap_idx, slide, tap=1, **kw_s)
     torch.cuda.synchronize()
-    chain_counts["scrolled"] = read_counts("chain scrolled")
+    chain_counts["scrolled"] = read_counts("chain scrolled", CHAIN_KERNELS)
     log(f"[chain scrolled] {K_s} ticks, {int((hs != 0).any(0).sum())} of "
         f"{N} lanes mid-slide, launches {chain_counts['scrolled']}")
     compare_plain("scrolled", xs_s, kw_s, K_s, slide=slide)
@@ -618,11 +875,15 @@ def main() -> int:
         serve_counts = serve_phase_a(dev, url, serve_lanes, 16, smi)
         # B: kernel path == plain path at A's lanes
         serve_phase_b(dev, url, serve_lanes)
+        # 7. decode-only serving, then kernel path == plain path
+        decode_counts = decode_serving(dev, url, serve_lanes, smi)
+        decode_parity(dev, url, serve_lanes)
 
     for k in kernels:
-        k["launches"] = serve_counts[k["name"]]
+        k["launches"] = serve_counts.get(k["name"],
+                                        decode_counts.get(k["name"]))
 
-    # ---- 7. results ------------------------------------------------------
+    # ---- 8. results ------------------------------------------------------
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -33,8 +33,11 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # ends with the stream (a pointer) and returns int (cudaError_t)
 SIGNATURES = {
     "esp_scan_dense": "p" * 16 + "i" * 8,
+    "esp_scan_flat": "p" * 15 + "i" * 7,
     "esp_idct_T": "p" * 8 + "i" * 2,
+    "esp_idct_flat": "p" * 7 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
+    "esp_compose_put_flat": "p" * 10 + "i" * 3,
     "esp_composite_parts": "p" * 12 + "i" * 7,
     "esp_pdm": "p" * 4 + "i" * 2,
 }

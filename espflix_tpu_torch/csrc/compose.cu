@@ -23,6 +23,13 @@
 // is read (as `cur`) and written by the same thread, so no block reads
 // what another writes.  The presented planes go to separate tensors.
 //
+// K3F (esp_compose_put_flat) is the same kernel reading K2F's
+// lane-minor residuals int16[N, MB*6, 64]: the plane assembly of the
+// lane-minor dense phase (models/mpeg1.py:592-609) becomes index
+// arithmetic in the staging loop, so no residual plane is written.  It
+// replaces mocomp_pallas.py _compose_kernel (compose_plane_pallas) and
+// _compose2_kernel (compose_plane_pallas2), y, u and v in one launch.
+//
 // Semantics: mocomp.predict_plane_mxu's edge rule (window origin
 // clip(xh >> 1, 0, W - S), zero past the plane), MPEG-1 half-pel
 // rounding, chroma MVs >> 1; STALE keeps cur, INTRA is pin(res), else
@@ -43,7 +50,11 @@ __device__ __forceinline__ int pin(int x) {
   return x < 0 ? 0 : (x > 248 ? 248 : x);
 }
 
-__global__ void compose_put_kernel(const int16_t* __restrict__ res_T,
+// FLAT = false: residuals res int16[N, 64, BL] (K2's output); FLAT =
+// true: res int16[N, BL, 64] (K2F's output).  Only the staging of the
+// MB row's residual blocks into shared memory differs.
+template <bool FLAT>
+__global__ void compose_put_kernel(const int16_t* __restrict__ rsrc,
                                    const int* __restrict__ recs,
                                    const uint8_t* __restrict__ active,
                                    const int* __restrict__ parity,
@@ -69,11 +80,22 @@ __global__ void compose_put_kernel(const int16_t* __restrict__ res_T,
     s_mvx[c] = mvx;
     s_mvy[c] = mvy;
   }
-  const int16_t* res_n = res_T + (size_t)n * 64 * BL + (size_t)r * mbw * 6;
-  for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
-    const int p = i / cols, k = i % cols;
-    const int c = k / nb, blk = plane == 0 ? k % nb : 3 + plane;
-    sres[i] = res_n[(size_t)p * BL + c * 6 + blk];
+  if (FLAT) {
+    // the row's blocks are contiguous: position p fastest for coalescing
+    const int16_t* res_n =
+        rsrc + ((size_t)n * BL + (size_t)r * mbw * 6) * 64;
+    for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
+      const int k = i / 64, p = i % 64;
+      const int c = k / nb, blk = plane == 0 ? k % nb : 3 + plane;
+      sres[p * cols + k] = res_n[(size_t)(c * 6 + blk) * 64 + p];
+    }
+  } else {
+    const int16_t* res_n = rsrc + (size_t)n * 64 * BL + (size_t)r * mbw * 6;
+    for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
+      const int p = i / cols, k = i % cols;
+      const int c = k / nb, blk = plane == 0 ? k % nb : 3 + plane;
+      sres[i] = res_n[(size_t)p * BL + c * 6 + blk];
+    }
   }
   __syncthreads();
 
@@ -125,6 +147,21 @@ __global__ void compose_put_kernel(const int16_t* __restrict__ res_T,
   }
 }
 
+template <bool FLAT>
+int launch_compose_put(const void* res, const void* recs, const void* active,
+                       const void* parity, void* fy, void* fu, void* fv,
+                       void* py, void* pu, void* pv, int N, int mbw, int mbh,
+                       void* stream) {
+  const int threads = 256;
+  dim3 grid(mbh, N, 3);
+  const size_t smem = (size_t)64 * mbw * 4 * sizeof(int16_t);
+  compose_put_kernel<FLAT><<<grid, threads, smem, (cudaStream_t)stream>>>(
+      (const int16_t*)res, (const int*)recs, (const uint8_t*)active,
+      (const int*)parity, (uint8_t*)fy, (uint8_t*)fu, (uint8_t*)fv,
+      (uint8_t*)py, (uint8_t*)pu, (uint8_t*)pv, mbw, mbh);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int esp_compose_put(const void* res_T, const void* recs,
@@ -132,12 +169,15 @@ extern "C" int esp_compose_put(const void* res_T, const void* recs,
                                void* fy, void* fu, void* fv, void* py,
                                void* pu, void* pv, int N, int mbw, int mbh,
                                void* stream) {
-  const int threads = 256;
-  dim3 grid(mbh, N, 3);
-  const size_t smem = (size_t)64 * mbw * 4 * sizeof(int16_t);
-  compose_put_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const int16_t*)res_T, (const int*)recs, (const uint8_t*)active,
-      (const int*)parity, (uint8_t*)fy, (uint8_t*)fu, (uint8_t*)fv,
-      (uint8_t*)py, (uint8_t*)pu, (uint8_t*)pv, mbw, mbh);
-  return (int)cudaGetLastError();
+  return launch_compose_put<false>(res_T, recs, active, parity, fy, fu, fv,
+                                   py, pu, pv, N, mbw, mbh, stream);
+}
+
+extern "C" int esp_compose_put_flat(const void* res, const void* recs,
+                                    const void* active, const void* parity,
+                                    void* fy, void* fu, void* fv, void* py,
+                                    void* pu, void* pv, int N, int mbw,
+                                    int mbh, void* stream) {
+  return launch_compose_put<true>(res, recs, active, parity, fy, fu, fv, py,
+                                  pu, pv, N, mbw, mbh, stream);
 }

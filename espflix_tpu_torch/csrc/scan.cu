@@ -26,6 +26,18 @@
 // MB row) writes, emissions into one slot add up (int16-wrapping
 // coefficients, int32 nfinal, byte-quarter sums for records, stored as
 // lo16 | hi15 << 16).
+//
+// K1F (esp_scan_flat) -- the same FSM device code (scan_row) with the
+// lane-minor stores of run_scan_pallas_bucketed / _sliced
+// (vlc_scan_pallas.py:450-557, their _scatter): each emission is SET at
+// coeffs[lane, mb*384 + blk*64 + pos], recs[lane, mb] and nfinal[lane,
+// mb*6 + blk]; a lane errors when one of its rows ends in an FSM error
+// or not in ST_DONE.  It replaces the same Pallas kernel (_make_kernel)
+// and the [T, rows] log + put_along_axis that followed it.  No int32
+// scratch: the three outputs are written directly (about 208 MB of
+// int16 coefficients at 1,024 lanes of 352x192, which bounds it by
+// bytes only if the FSM's latency did not).  Two rows that claim one
+// slot race (the JAX scatter's order is unspecified there too).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -90,69 +102,29 @@ __device__ __forceinline__ int floor_log2(int x) {   // x >= 1
   return 31 - __clz(x);
 }
 
-__global__ void scan_dense_kernel(
-    const uint32_t* __restrict__ words, const int* __restrict__ start_bits,
-    const int* __restrict__ rows, const int* __restrict__ alive,
-    const int* __restrict__ pic_type, const int* __restrict__ full_pel,
-    const int* __restrict__ r_size, const int* __restrict__ lane_of_row,
-    const int* __restrict__ perm, const int* __restrict__ lut,
-    const int* __restrict__ zz, int16_t* __restrict__ coeffs_T,
-    int* __restrict__ recs, int* __restrict__ nfinal,
-    uint8_t* __restrict__ err, int* __restrict__ iters, int NS, int Wp,
-    int mbw, int mbh, int long_rows, int budget_long, int budget_short) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= NS) return;
-  const uint32_t* w = words + (size_t)r * Wp;
-  const int mb_count = mbw * mbh;
-  const int BL = mb_count * 6;
-  const bool live_row = alive[r] != 0;
-  const int row = rows[r];
-  const int lane = lane_of_row[r];
-  const int rb = row * mbw;                   // first MB of the row
-  const bool selected = live_row && row >= 0 && row < mbh &&
-                        perm[lane * mbh + row] == r;
-  const int budget = r < long_rows ? budget_long : budget_short;
-  const bool is_p = pic_type[r] == 2;
-  const int fp = full_pel[r];
-  const int rs = r_size[r];
-
-  int state = live_row ? ST_SLICE_HDR : ST_DONE;
-  int bitpos = live_row ? start_bits[r] : 0;
+// One scan row through the slice FSM (make_scan_step, vlc_scan.py:
+// 279-660) for at most `budget` steps.  Every emission goes to the
+// sink: rec(mi, record), nfin(mi, blk, n) at a block's EOB and
+// coef(mi, blk, pos, level).  Returns the steps taken; `error` and
+// `state` are the row's final FSM error flag and state.
+template <class Sink>
+__device__ int scan_row(const uint32_t* w, int Wp, bool live_row,
+                        int start_bit, int row, int mbw, int mb_count,
+                        bool is_p, int fp, int rs, int budget,
+                        const int* __restrict__ lut,
+                        const int* __restrict__ zz, Sink& sink, bool& error,
+                        int& state) {
+  state = live_row ? ST_SLICE_HDR : ST_DONE;
+  int bitpos = live_row ? start_bit : 0;
   int mb_x = -1, mb_y = live_row ? row : 0;
   int qscale = 1, y_dc = 128, u_dc = 128, v_dc = 128, mv_h = 0, mv_v = 0;
   int mb_type = 0, cbp = 0, blk = 0, n = 0, pending = 0, inc_acc = 0;
   int first_mb = 1;
-  bool error = false, dropped = false;
-  int q[4 * MAX_MBW];                         // record byte-quarter sums
-  if (selected)
-    for (int i = 0; i < 4 * mbw; ++i) q[i] = 0;
-
-  int16_t* coef_lane = coeffs_T + (size_t)lane * 64 * BL;
-  int* nf_lane = nfinal + (size_t)lane * BL;
+  error = false;
 
   auto mb_index = [&](int x, int y) {
     int i = y * mbw + x;
     return i < 0 ? 0 : (i > mb_count - 1 ? mb_count - 1 : i);
-  };
-  // local MB of an emission, or -1 (dropped: errors the lane)
-  auto local_mb = [&](int mi) {
-    int l = mi - rb;
-    if (l < 0 || l >= mbw) { dropped = true; return -1; }
-    return l;
-  };
-  auto emit_rec = [&](int mi, int val) {
-    int l = local_mb(mi);
-    if (l < 0 || !selected) return;
-    for (int k = 0; k < 4; ++k) q[l * 4 + k] += (val >> (8 * k)) & 0xFF;
-  };
-  auto emit_nfin = [&](int mi, int b, int val) {
-    if (local_mb(mi) < 0 || !selected) return;
-    nf_lane[mi * 6 + b] += val;
-  };
-  auto emit_coef = [&](int mi, int b, int pos, int val) {
-    if (local_mb(mi) < 0 || !selected) return;
-    int16_t* c = coef_lane + (size_t)pos * BL + mi * 6 + b;
-    *c = (int16_t)((int)*c + (int)(int16_t)val);
   };
   auto advance = [&](int& x, int& y) {
     if (++x >= mbw) { x -= mbw; ++y; }
@@ -204,7 +176,7 @@ __global__ void scan_dense_kernel(
     } break;
     case ST_SKIP: {
       advance(mb_x, mb_y);
-      emit_rec(mb_index(mb_x, mb_y), MB_SKIP);
+      sink.rec(mb_index(mb_x, mb_y), MB_SKIP);
       if (--pending == 0) {
         state = ST_MBTYPE;
         advance(mb_x, mb_y);
@@ -224,7 +196,7 @@ __global__ void scan_dense_kernel(
         blk = 0;
         n = 0;
         state = ST_DC;
-        emit_rec(mi, MB_INTRA | (qscale << 2));
+        sink.rec(mi, MB_INTRA | (qscale << 2));
       } else {
         y_dc = u_dc = v_dc = 128;
         if (mbt & MBT_MOTION_F) {
@@ -232,7 +204,7 @@ __global__ void scan_dense_kernel(
         } else {
           mv_h = mv_v = 0;
           state = (mbt & MBT_PATTERN) ? ST_CBP : ST_MBADDR;
-          emit_rec(mi, MB_INTER | (qscale << 2));
+          sink.rec(mi, MB_INTER | (qscale << 2));
         }
       }
     } break;
@@ -257,7 +229,7 @@ __global__ void scan_dense_kernel(
         mv_v = mval;
         state = (mb_type & MBT_PATTERN) ? ST_CBP : ST_MBADDR;
         const int hf = mv_h * (1 << fp), vf = mv_v * (1 << fp);
-        emit_rec(mi, MB_INTER | (qscale << 2) | ((hf & 0xFFF) << 7) |
+        sink.rec(mi, MB_INTER | (qscale << 2) | ((hf & 0xFFF) << 7) |
                          ((vf & 0xFFF) << 19));
       }
     } break;
@@ -282,7 +254,7 @@ __global__ void scan_dense_kernel(
       consumed = e.bits + dc_size;
       if (e.kind == K_INVALID) { error = true; state = ST_DONE; break; }
       if (blk < 4) y_dc = dc; else if (blk == 4) u_dc = dc; else v_dc = dc;
-      emit_coef(mi, blk, 0, dc);
+      sink.coef(mi, blk, 0, dc);
       n = 1;
       state = ST_COEF;
     } break;
@@ -294,7 +266,7 @@ __global__ void scan_dense_kernel(
       consumed = e.bits + (esc ? ((v8 == 0 || v8 == 128) ? 16 : 8) : 0);
       if (e.kind == K_INVALID) { error = true; state = ST_DONE; break; }
       if (e.kind == K_EOB) {
-        emit_nfin(mi, blk, n);
+        sink.nfin(mi, blk, n);
         const int rem = cbp & ((0x20 >> blk) - 1);
         const int nb = rem > 0 ? 5 - floor_log2(rem) : 6;
         if (nb < 6) {
@@ -313,7 +285,7 @@ __global__ void scan_dense_kernel(
               : e.val;
       const int nn = n + e.run;
       if (nn >= 64) { error = true; state = ST_DONE; break; }
-      emit_coef(mi, blk, zz[nn < 0 ? 0 : nn], level);
+      sink.coef(mi, blk, zz[nn < 0 ? 0 : nn], level);
       n = nn + 1;
     } break;
     default:
@@ -321,17 +293,133 @@ __global__ void scan_dense_kernel(
     }
     bitpos += consumed;
   }
+  return t;
+}
 
-  if (selected) {
-    int* rec_row = recs + (size_t)lane * mb_count + rb;
+// K1's sink: the densify rules of ops/scan_dense.py.  An emission
+// outside the row's MB row is dropped and errors the lane; only the
+// row that perm selects for its (lane, MB row) writes; emissions into
+// one slot add up (records as byte-quarter sums kept per MB).
+struct DenseSink {
+  int16_t* coef_lane;
+  int* nf_lane;
+  int BL, rb, mbw;
+  bool selected, dropped;
+  int q[4 * MAX_MBW];
+
+  __device__ int local_mb(int mi) {
+    int l = mi - rb;
+    if (l < 0 || l >= mbw) { dropped = true; return -1; }
+    return l;
+  }
+  __device__ void rec(int mi, int val) {
+    int l = local_mb(mi);
+    if (l < 0 || !selected) return;
+    for (int k = 0; k < 4; ++k) q[l * 4 + k] += (val >> (8 * k)) & 0xFF;
+  }
+  __device__ void nfin(int mi, int b, int val) {
+    if (local_mb(mi) < 0 || !selected) return;
+    nf_lane[mi * 6 + b] += val;
+  }
+  __device__ void coef(int mi, int b, int pos, int val) {
+    if (local_mb(mi) < 0 || !selected) return;
+    int16_t* c = coef_lane + (size_t)pos * BL + mi * 6 + b;
+    *c = (int16_t)((int)*c + (int)(int16_t)val);
+  }
+};
+
+__global__ void scan_dense_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ start_bits,
+    const int* __restrict__ rows, const int* __restrict__ alive,
+    const int* __restrict__ pic_type, const int* __restrict__ full_pel,
+    const int* __restrict__ r_size, const int* __restrict__ lane_of_row,
+    const int* __restrict__ perm, const int* __restrict__ lut,
+    const int* __restrict__ zz, int16_t* __restrict__ coeffs_T,
+    int* __restrict__ recs, int* __restrict__ nfinal,
+    uint8_t* __restrict__ err, int* __restrict__ iters, int NS, int Wp,
+    int mbw, int mbh, int long_rows, int budget_long, int budget_short) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= NS) return;
+  const int mb_count = mbw * mbh;
+  const int BL = mb_count * 6;
+  const bool live_row = alive[r] != 0;
+  const int row = rows[r];
+  const int lane = lane_of_row[r];
+
+  DenseSink sink;
+  sink.coef_lane = coeffs_T + (size_t)lane * 64 * BL;
+  sink.nf_lane = nfinal + (size_t)lane * BL;
+  sink.BL = BL;
+  sink.rb = row * mbw;                        // first MB of the row
+  sink.mbw = mbw;
+  sink.selected = live_row && row >= 0 && row < mbh &&
+                  perm[lane * mbh + row] == r;
+  sink.dropped = false;
+  if (sink.selected)
+    for (int i = 0; i < 4 * mbw; ++i) sink.q[i] = 0;
+
+  bool error;
+  int state;
+  const int t = scan_row(words + (size_t)r * Wp, Wp, live_row, start_bits[r],
+                         row, mbw, mb_count, pic_type[r] == 2, full_pel[r],
+                         r_size[r], r < long_rows ? budget_long : budget_short,
+                         lut, zz, sink, error, state);
+
+  if (sink.selected) {
+    int* rec_row = recs + (size_t)lane * mb_count + sink.rb;
     for (int l = 0; l < mbw; ++l) {
-      const uint32_t rec = (uint32_t)q[l * 4] | ((uint32_t)q[l * 4 + 1] << 8) |
-                           ((uint32_t)q[l * 4 + 2] << 16) |
-                           ((uint32_t)q[l * 4 + 3] << 24);
+      const int* q = sink.q + l * 4;
+      const uint32_t rec = (uint32_t)q[0] | ((uint32_t)q[1] << 8) |
+                           ((uint32_t)q[2] << 16) | ((uint32_t)q[3] << 24);
       rec_row[l] = (int)((rec & 0xFFFFu) | (((rec >> 16) & 0x7FFFu) << 16));
     }
   }
-  if (error || dropped || state != ST_DONE) err[lane] = 1;
+  if (error || sink.dropped || state != ST_DONE) err[lane] = 1;
+  atomicMax(iters, t);
+}
+
+// K1F's sink: the single set-scatter of run_scan_pallas_bucketed
+// (vlc_scan_pallas.py:539-552) written straight into the lane-minor
+// buffers -- no densify, no drop, no duplicate-claim check; a later
+// emission into a slot replaces an earlier one.
+struct FlatSink {
+  int16_t* coef_lane;
+  int* rec_lane;
+  int* nf_lane;
+
+  __device__ void rec(int mi, int val) { rec_lane[mi] = val; }
+  __device__ void nfin(int mi, int b, int val) { nf_lane[mi * 6 + b] = val; }
+  __device__ void coef(int mi, int b, int pos, int val) {
+    coef_lane[(size_t)mi * 384 + b * 64 + pos] = (int16_t)val;
+  }
+};
+
+__global__ void scan_flat_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ start_bits,
+    const int* __restrict__ rows, const int* __restrict__ alive,
+    const int* __restrict__ pic_type, const int* __restrict__ full_pel,
+    const int* __restrict__ r_size, const int* __restrict__ lane_of_row,
+    const int* __restrict__ lut, const int* __restrict__ zz,
+    int16_t* __restrict__ coeffs, int* __restrict__ recs,
+    int* __restrict__ nfinal, uint8_t* __restrict__ err,
+    int* __restrict__ iters, int NS, int Wp, int mbw, int mbh,
+    int long_rows, int budget_long, int budget_short) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= NS) return;
+  const int mb_count = mbw * mbh;
+  const int lane = lane_of_row[r];
+  FlatSink sink;
+  sink.coef_lane = coeffs + (size_t)lane * mb_count * 384;
+  sink.rec_lane = recs + (size_t)lane * mb_count;
+  sink.nf_lane = nfinal + (size_t)lane * mb_count * 6;
+  bool error;
+  int state;
+  const int t = scan_row(words + (size_t)r * Wp, Wp, alive[r] != 0,
+                         start_bits[r], rows[r], mbw, mb_count,
+                         pic_type[r] == 2, full_pel[r], r_size[r],
+                         r < long_rows ? budget_long : budget_short, lut, zz,
+                         sink, error, state);
+  if (error || state != ST_DONE) err[lane] = 1;
   atomicMax(iters, t);
 }
 
@@ -355,5 +443,26 @@ extern "C" int esp_scan_dense(
       (const int*)lut, (const int*)zz, (int16_t*)coeffs_T, (int*)recs,
       (int*)nfinal, (uint8_t*)err, (int*)iters, NS, Wp, mbw, mbh,
       long_rows, budget_long, budget_short);
+  return (int)cudaGetLastError();
+}
+
+// coeffs / recs / nfinal / err / iters arrive zeroed (the scatter
+// buffer of the JAX launcher starts at 0)
+extern "C" int esp_scan_flat(
+    const void* words, const void* start_bits, const void* rows,
+    const void* alive, const void* pic_type, const void* full_pel,
+    const void* r_size, const void* lane_of_row, const void* lut,
+    const void* zz, void* coeffs, void* recs, void* nfinal, void* err,
+    void* iters, int NS, int Wp, int mbw, int mbh, int long_rows,
+    int budget_long, int budget_short, void* stream) {
+  const int threads = 64;
+  const int blocks = (NS + threads - 1) / threads;
+  scan_flat_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int*)start_bits, (const int*)rows,
+      (const int*)alive, (const int*)pic_type, (const int*)full_pel,
+      (const int*)r_size, (const int*)lane_of_row, (const int*)lut,
+      (const int*)zz, (int16_t*)coeffs, (int*)recs, (int*)nfinal,
+      (uint8_t*)err, (int*)iters, NS, Wp, mbw, mbh, long_rows, budget_long,
+      budget_short);
   return (int)cudaGetLastError();
 }

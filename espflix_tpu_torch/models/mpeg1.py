@@ -6,8 +6,12 @@ into PictureData records, and batch assembly.
 
 Device side: ``dense_compose`` turns the scanner's dense buffers into
 new frames -- dequant+IDCT (ops/idct.py, K2) and one fused prediction +
-compose + put pass (ops/mocomp.py, K3).  Frame state is double-buffered
-[N, 2, H, W] planes plus a per-lane parity, as in the JAX package.
+compose + put pass (ops/mocomp.py, K3); ``dense_compose_flat`` does the
+same from the lane-minor buffers (K2F, K3F).
+``decode_picture_batch_sliced`` is the decode-only fleet's per-tick
+decode: the slice scan (K1 or K1F) and one of the two.  Frame state is
+double-buffered [N, 2, H, W] planes plus a per-lane parity, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -17,10 +21,12 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from espflix_tpu.core import vlc_tables as V
-from espflix_tpu.core.bitio import BitReader
+from espflix_tpu_torch.core import vlc_tables as V
+from espflix_tpu_torch.core.bitio import BitReader
 from espflix_tpu_torch.ops import idct as idct_ops
 from espflix_tpu_torch.ops import mocomp as mocomp_ops
+from espflix_tpu_torch.ops import scan_dense as SD
+from espflix_tpu_torch.ops import vlc_scan as VS
 from espflix_tpu_torch.ops.vlc_scan import MB_INTRA
 
 
@@ -258,3 +264,114 @@ def dense_compose(coeffs_T, recs, nfinal, intra_q, non_intra_q, active,
     parity = frames["parity"]
     frames["parity"] = torch.where(active, 1 - parity, parity)
     return frames, presented
+
+
+def dense_compose_flat(coeffs, recs, nfinal, intra_q, non_intra_q, active,
+                       frames, *, mb_width: int, mb_height: int,
+                       scale_dct: torch.Tensor | None = None):
+    """dense_compose on the lane-minor buffers (the coeffs_T is None
+    branch of espflix_tpu.models.mpeg1.dense_compose, mpeg1.py:570-665):
+    coeffs int16[N, MB*384] -> K2F residuals -> K3F prediction +
+    compose + put.  Same in-place contract and returns as
+    dense_compose."""
+    res = idct_ops.block_residuals_flat(coeffs, recs, nfinal, intra_q,
+                                        non_intra_q, scale_dct=scale_dct)
+    presented = mocomp_ops.predict_compose_put_flat(
+        res, recs, active, frames, mb_width=mb_width, mb_height=mb_height)
+    parity = frames["parity"]
+    frames["parity"] = torch.where(active, 1 - parity, parity)
+    return frames, presented
+
+
+def decode_tables(device) -> dict:
+    """The decode's constant tables on `device`: the scanner's unified
+    VLC LUT, the zigzag order and the IDCT scale."""
+    lut, _bases, _bits = VS._mega_lut_np()
+    return dict(lut=torch.from_numpy(lut).to(device),
+                zigzag=torch.from_numpy(VS.ZZ_NP).to(device),
+                scale_dct=idct_ops.scale_dct_q(device))
+
+
+def xs_to_torch(xs: dict, device) -> dict:
+    """Host arrays (numpy) -> tensors on `device`; uint32 word buffers
+    travel as int32 bit patterns."""
+    out = {}
+    for k, v in xs.items():
+        a = np.asarray(v)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return out
+
+
+SCAN_KEYS = ("words", "start_bits", "rows", "alive", "pic_type",
+             "full_pel", "r_size", "lane_of_row")
+
+
+def _quantize_pow2(x: int, lo: int, hi: int) -> int:
+    """Round x up to a power of two, clamped to [lo, hi] (mpeg1.py:705)."""
+    p = lo
+    while p < x and p < hi:
+        p *= 2
+    return min(max(p, lo), hi)
+
+
+def decode_picture_batch_sliced(batch: dict, frames, *, mb_width: int,
+                                mb_height: int, tables: dict,
+                                max_steps: int = 2048,
+                                steps_short: int = 512):
+    """One tick's decode through the slice scan: the port of
+    espflix_tpu.models.mpeg1.decode_picture_batch_sliced (mpeg1.py:
+    714-807) with its default matmul scatter, on frames' device.
+
+    Rows whose bit span exceeds steps_short count as long.  Small or
+    mostly-long batches (need_long > NS - 8 or NS < 16, e.g. every
+    one-lane fleet) take the uniform-budget scan over unsorted rows
+    (K1F, max_steps in chunks of 256) and the lane-minor dense phase
+    (K2F, K3F); the rest take the two-bucket dense scan (K1, long_rows
+    = need_long rounded up to a power of two in [8, NS - 8], chunks of
+    128) with duplicate slice claims flagged, then K2 and K3.  Lanes
+    whose slice span overflows the word window are errors.
+
+    tables: decode_tables(device).  frames are updated in place.
+    Returns (frames, presented y/u/v, info) with info error / ok
+    bool[N] and iters int32[N]."""
+    dev = frames["y"].device
+    n = len(batch["active"])
+    lane = xs_to_torch({k: batch[k] for k in ("intra_q", "non_intra_q",
+                                              "active")}, dev)
+    scan_kw = dict(mb_width=mb_width, mb_height=mb_height, n_lanes=n,
+                   lut=tables["lut"], zigzag=tables["zigzag"])
+    sl = VS.pack_slice_rows(batch, sort_rows=True)
+    NS = sl["span"].shape[0]
+    need_long = int((sl["span"] * 32 > steps_short).sum())
+    if need_long > NS - 8 or NS < 16:
+        sl = VS.pack_slice_rows(batch)
+        rows = xs_to_torch({k: sl[k] for k in SCAN_KEYS}, dev)
+        coeffs, recs, nfinal, err, iters = VS.run_scan_bucketed(
+            *rows.values(), long_rows=NS, steps_long=max_steps,
+            steps_short=max_steps, chunk=256, **scan_kw)
+        frames, presented = dense_compose_flat(
+            coeffs, recs, nfinal, lane["intra_q"], lane["non_intra_q"],
+            lane["active"], frames, mb_width=mb_width, mb_height=mb_height,
+            scale_dct=tables["scale_dct"])
+    else:
+        long_rows = _quantize_pow2(max(need_long, 1), 8, max(NS - 8, 8))
+        perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
+                                sl["alive"], n, mb_height)
+        rows = xs_to_torch(dict({k: sl[k] for k in SCAN_KEYS}, perm=perm),
+                           dev)
+        coeffs_T, recs, nfinal, err, iters = VS.run_scan_bucketed_dense(
+            *rows.values(), long_rows=long_rows, steps_long=max_steps,
+            steps_short=steps_short, chunk=128, **scan_kw)
+        if dup.any():
+            err = err | torch.from_numpy(dup).to(dev)
+        frames, presented = dense_compose(
+            coeffs_T, recs, nfinal, lane["intra_q"], lane["non_intra_q"],
+            lane["active"], frames, mb_width=mb_width, mb_height=mb_height,
+            scale_dct=tables["scale_dct"])
+    if sl["overflow"].any():
+        err = err | torch.from_numpy(sl["overflow"]).to(dev)
+    info = dict(error=err, ok=lane["active"] & ~err,
+                iters=iters.expand(n))
+    return frames, presented, info

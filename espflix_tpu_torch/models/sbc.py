@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from espflix_tpu.core import sbc_tables as ST
+from espflix_tpu_torch.core import sbc_tables as ST
 from espflix_tpu_torch.ops import sbc_ops
 
 BLOCKS = 16

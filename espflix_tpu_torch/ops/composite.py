@@ -22,7 +22,7 @@ import functools
 import numpy as np
 import torch
 
-from espflix_tpu.video import tables as T
+from espflix_tpu_torch.video import tables as T
 from espflix_tpu_torch.ops.intwrap import wrap16, wrap32
 
 OSD_W, OSD_H = 80, 16

@@ -1,7 +1,12 @@
-"""Exact dequant + fixed-point 8x8 IDCT on the [N, 64, BL] layout (K2).
+"""Exact dequant + fixed-point 8x8 IDCT (K2 and K2F).
 
-The port of espflix_tpu.ops.idct.block_residuals_T (idct.py:143-195) and
-of its Pallas kernel idct_pallas._kernel_T (idct_pallas.py:171-255).
+K2 works on the [N, 64, BL] layout: the port of
+espflix_tpu.ops.idct.block_residuals_T (idct.py:143-195) and of its
+Pallas kernel idct_pallas._kernel_T (idct_pallas.py:171-255).  K2F
+works on the lane-minor [N, MB*384] layout: the port of
+idct.block_residuals_flat (idct.py:197-204) and of the Pallas kernel
+idct_pallas._kernel (idct_pallas.py:86-155).
+
 All arithmetic is int32 with the reference decoder's rounding: doubling
 + oddification + truncating /16 (sign handled explicitly: torch's //
 floors), the +-2048 clip, intra DC as lev << 8, the 473/196/362
@@ -13,10 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from espflix_tpu.core import vlc_tables as V
+from espflix_tpu_torch.core import vlc_tables as V
 from espflix_tpu_torch.ops.intwrap import wrap16
+from espflix_tpu_torch.ops.vlc_scan import MB_INTRA
 
 launches = 0            # K2 launches (counted by the CUDA path only)
+launches_flat = 0       # K2F launches (counted by the CUDA path only)
 
 
 def scale_dct_q(device) -> torch.Tensor:
@@ -122,4 +129,67 @@ def block_residuals_T(coeffs_T, intra_bl, qs_bl, intra_q, non_intra_q,
     build.launch("esp_idct_T", coeffs_T, intra_bl, qs_bl, intra_q,
                  non_intra_q, nfinal, scale_dct, out, N, BL)
     launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# lane-minor form (K2F): [N, MB*384] levels -> [N, MB*6, 64] residuals
+# ---------------------------------------------------------------------------
+
+def _flat_blocks(recs):
+    """Per-block intra flag and qscale from the MB records."""
+    intra_bl = ((recs & 3) == MB_INTRA).repeat_interleave(6, dim=1)
+    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
+    return intra_bl, qs_bl
+
+
+def block_residuals_flat_torch(coeffs, recs, nfinal, intra_q, non_intra_q,
+                               scale_dct=None):
+    """Plain form of K2F: the [N, 64, BL] plain form on the transposed
+    levels, transposed back (same arguments and result as
+    block_residuals_flat)."""
+    N = coeffs.shape[0]
+    levels_T = coeffs.reshape(N, -1, 64).transpose(1, 2)
+    intra_bl, qs_bl = _flat_blocks(recs)
+    res_T = block_residuals_T_torch(levels_T, intra_bl, qs_bl, intra_q,
+                                    non_intra_q, nfinal, scale_dct)
+    return res_T.transpose(1, 2).contiguous()
+
+
+def block_residuals_flat(coeffs, recs, nfinal, intra_q, non_intra_q,
+                         scale_dct=None):
+    """Residuals int16[N, MB*6, 64] from lane-minor levels: the port of
+    espflix_tpu.ops.idct.block_residuals_flat as models/mpeg1.
+    dense_compose's lane-minor branch calls it (mpeg1.py:571-590, intra
+    flag and qscale from each block's MB record, the int16 cast of
+    :590) and of its Pallas kernel idct_pallas._kernel
+    (block_residuals_pallas, idct_pallas.py:86-155).
+
+    coeffs int16[N, MB*384] (MB-major, then block, then raster
+    position); recs int32[N, MB]; nfinal int32[N, MB*6]; intra_q /
+    non_intra_q int32[N, 64]; scale_dct int32[64] (SCALE_DCT_Q, made on
+    the device when omitted).  CPU tensors take the plain form; CUDA
+    tensors launch K2F (csrc/idct.cu)."""
+    global launches_flat
+    if coeffs.device.type == "cpu":
+        return block_residuals_flat_torch(coeffs, recs, nfinal, intra_q,
+                                          non_intra_q, scale_dct)
+    if coeffs.device.type != "cuda":
+        raise ValueError(f"unsupported device {coeffs.device}")
+    from espflix_tpu_torch import build
+
+    dev = coeffs.device
+    N, MB = recs.shape
+    if scale_dct is None:
+        scale_dct = scale_dct_q(dev)
+    build.check(coeffs, dev, torch.int16, (N, MB * 384))
+    build.check(recs, dev, torch.int32, (N, MB))
+    build.check(nfinal, dev, torch.int32, (N, MB * 6))
+    build.check(intra_q, dev, torch.int32, (N, 64))
+    build.check(non_intra_q, dev, torch.int32, (N, 64))
+    build.check(scale_dct, dev, torch.int32, (64,))
+    out = torch.empty((N, MB * 6, 64), dtype=torch.int16, device=dev)
+    build.launch("esp_idct_flat", coeffs, recs, nfinal, intra_q,
+                 non_intra_q, scale_dct, out, N, MB)
+    launches_flat += 1
     return out

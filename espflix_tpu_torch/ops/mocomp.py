@@ -1,4 +1,7 @@
-"""Half-pel motion compensation fused with compose and the parity put (K3).
+"""Half-pel motion compensation fused with compose and the parity put.
+
+K3 (predict_compose_put) takes K2's [N, 64, BL] residuals; K3F
+(predict_compose_put_flat) takes K2F's lane-minor [N, MB*6, 64] ones.
 
 Prediction follows the JAX package's main-path edge rule
 (espflix_tpu.ops.mocomp.predict_plane_mxu, mocomp.py:124-175, and the
@@ -20,6 +23,7 @@ from espflix_tpu_torch.ops.vlc_scan import MAX_MB_WIDTH, MB_INTRA, \
     MB_STALE
 
 launches = 0            # K3 launches (counted by the CUDA path only)
+launches_flat = 0       # K3F launches (counted by the CUDA path only)
 
 
 def _sext12(x):
@@ -77,14 +81,27 @@ def residual_planes(res_T, mb_width: int, mb_height: int):
     return ry, ru, rv
 
 
-def predict_compose_put_torch(res_T, recs, active, frames, *,
-                              mb_width: int, mb_height: int):
-    """Plain form of K3 (same contract as predict_compose_put)."""
+def residual_planes_flat(res, mb_width: int, mb_height: int):
+    """res int16[N, MB*6, 64] -> (ry [N, H, W], ru, rv [N, H/2, W/2]) in
+    raster order (the JAX package's lane-minor plane assembly,
+    mpeg1.py:592-609)."""
+    N = res.shape[0]
+    H, W = mb_height * 16, mb_width * 16
+    r = res.reshape(N, mb_height, mb_width, 6, 8, 8)
+    ry = r[:, :, :, :4].reshape(N, mb_height, mb_width, 2, 2, 8, 8) \
+        .permute(0, 1, 3, 5, 2, 4, 6).reshape(N, H, W)
+    ru = r[:, :, :, 4].permute(0, 1, 3, 2, 4).reshape(N, H // 2, W // 2)
+    rv = r[:, :, :, 5].permute(0, 1, 3, 2, 4).reshape(N, H // 2, W // 2)
+    return ry, ru, rv
+
+
+def _compose_put_planes(resid, recs, active, frames, mb_width: int,
+                        mb_height: int):
+    """Prediction + compose + put from raster residual planes."""
     N = recs.shape[0]
     lanes = torch.arange(N, device=recs.device)
     parity = frames["parity"].long()
     kind, mv_h, mv_v = mb_fields(recs, mb_width, mb_height)
-    resid = residual_planes(res_T, mb_width, mb_height)
     presented = {}
     for key, res, S in zip("yuv", resid, (16, 8, 8)):
         planes = frames[key]
@@ -106,6 +123,21 @@ def predict_compose_put_torch(res_T, recs, active, frames, *,
     return presented
 
 
+def predict_compose_put_torch(res_T, recs, active, frames, *,
+                              mb_width: int, mb_height: int):
+    """Plain form of K3 (same contract as predict_compose_put)."""
+    return _compose_put_planes(residual_planes(res_T, mb_width, mb_height),
+                               recs, active, frames, mb_width, mb_height)
+
+
+def predict_compose_put_flat_torch(res, recs, active, frames, *,
+                                   mb_width: int, mb_height: int):
+    """Plain form of K3F (same contract as predict_compose_put_flat)."""
+    return _compose_put_planes(
+        residual_planes_flat(res, mb_width, mb_height), recs, active,
+        frames, mb_width, mb_height)
+
+
 def predict_compose_put(res_T, recs, active, frames, *, mb_width: int,
                         mb_height: int):
     """Predict every MB from the reference slot, compose with the
@@ -122,16 +154,26 @@ def predict_compose_put(res_T, recs, active, frames, *, mb_width: int,
         return predict_compose_put_torch(res_T, recs, active, frames,
                                          mb_width=mb_width,
                                          mb_height=mb_height)
-    if res_T.device.type != "cuda":
-        raise ValueError(f"unsupported device {res_T.device}")
+    pres = _launch_compose("esp_compose_put", res_T,
+                           (64, mb_width * mb_height * 6), recs, active,
+                           frames, mb_width, mb_height)
+    launches += 1
+    return pres
+
+
+def _launch_compose(entry, res, res_shape, recs, active, frames,
+                    mb_width: int, mb_height: int):
+    """Check the operands of K3 / K3F and launch C entry `entry`."""
+    if res.device.type != "cuda":
+        raise ValueError(f"unsupported device {res.device}")
     from espflix_tpu_torch import build
 
     if mb_width > MAX_MB_WIDTH:
         raise ValueError(f"mb_width {mb_width} > {MAX_MB_WIDTH}")
-    dev = res_T.device
+    dev = res.device
     N = recs.shape[0]
     H, W = mb_height * 16, mb_width * 16
-    build.check(res_T, dev, torch.int16, (N, 64, mb_width * mb_height * 6))
+    build.check(res, dev, torch.int16, (N,) + res_shape)
     build.check(recs, dev, torch.int32, (N, mb_width * mb_height))
     build.check(active, dev, torch.bool, (N,))
     build.check(frames["parity"], dev, torch.int32, (N,))
@@ -140,8 +182,30 @@ def predict_compose_put(res_T, recs, active, frames, *, mb_width: int,
     build.check(frames["v"], dev, torch.uint8, (N, 2, H // 2, W // 2))
     pres = {k: torch.empty(frames[k].shape[:1] + frames[k].shape[2:],
                            dtype=torch.uint8, device=dev) for k in "yuv"}
-    build.launch("esp_compose_put", res_T, recs, active, frames["parity"],
-                 frames["y"], frames["u"], frames["v"], pres["y"],
-                 pres["u"], pres["v"], N, mb_width, mb_height)
-    launches += 1
+    build.launch(entry, res, recs, active, frames["parity"], frames["y"],
+                 frames["u"], frames["v"], pres["y"], pres["u"], pres["v"],
+                 N, mb_width, mb_height)
+    return pres
+
+
+def predict_compose_put_flat(res, recs, active, frames, *, mb_width: int,
+                             mb_height: int):
+    """predict_compose_put from lane-minor residuals: the port of the
+    compose of models/mpeg1.dense_compose's lane-minor branch
+    (mpeg1.py:592-665 -- residual-plane assembly, compose, put,
+    presented) and of its Pallas kernels compose_plane_pallas /
+    compose_plane_pallas2 (mocomp_pallas.py:92, 161).
+
+    res int16[N, MB*6, 64] (K2F's output); the rest and the in-place
+    contract as predict_compose_put.  CPU tensors take the plain form;
+    CUDA tensors launch K3F (csrc/compose.cu)."""
+    global launches_flat
+    if res.device.type == "cpu":
+        return predict_compose_put_flat_torch(res, recs, active, frames,
+                                              mb_width=mb_width,
+                                              mb_height=mb_height)
+    pres = _launch_compose("esp_compose_put_flat", res,
+                           (mb_width * mb_height * 6, 64), recs, active,
+                           frames, mb_width, mb_height)
+    launches_flat += 1
     return pres

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from espflix_tpu.core import sbc_tables as T
+from espflix_tpu_torch.core import sbc_tables as T
 from espflix_tpu_torch.ops.intwrap import wrap32
 
 

@@ -15,7 +15,13 @@ vlc_scan_pallas.run_scan_pallas_bucketed_dense with transposed=True):
   * K1 (csrc/scan.cu): one CUDA thread per scan row runs the same FSM
     serially and stores straight into the dense buffers.
 
-Both decode every VLC table from the unified LUT of the JAX package
+``run_scan_bucketed`` is the lane-minor output mode (the port of
+run_scan_pallas_bucketed and, with one budget, run_scan_pallas_sliced):
+the same FSM, each emission SET into [N, MB*384] coefficients, [N, MB]
+records and [N, MB*6] EOB counts -- plainly by the lockstep form
+(``run_scan_bucketed_torch``), or by K1F (csrc/scan.cu) on a card.
+
+All forms decode every VLC table from the unified LUT of the JAX package
 (``_mega_lut_np``); the JAX step decodes the same codes with compare
 cascades, and the parity tests pin the two equal.  Row budgets count
 FSM steps: rows ``< long_rows`` get ``steps_long`` and the rest
@@ -31,8 +37,8 @@ import functools
 import numpy as np
 import torch
 
-from espflix_tpu.core import vlc_tables as V
-from espflix_tpu_torch.ops.intwrap import wrap32
+from espflix_tpu_torch.core import vlc_tables as V
+from espflix_tpu_torch.ops.intwrap import wrap16, wrap32
 
 # FSM states
 ST_DONE = 0
@@ -61,6 +67,7 @@ LUT_BASES = dict(MBADDR=0, MBTYPE_I=2048, MBTYPE_P=2112, CBP=2176,
 MAX_MB_WIDTH = 64       # csrc/scan.cu keeps per-MB record sums local
 
 launches = 0            # K1 launches (counted by the CUDA path only)
+launches_flat = 0       # K1F launches (counted by the CUDA path only)
 
 
 def _hdr_to_unified(lut: np.ndarray) -> np.ndarray:
@@ -667,3 +674,116 @@ def run_scan_bucketed_dense(
         long_rows, _budget(steps_long, chunk), _budget(steps_short, chunk))
     launches += 1
     return coeffs_T, recs, nfinal, err, iters
+
+
+# ---------------------------------------------------------------------------
+# lane-minor output mode (K1F): run_scan_pallas_bucketed / _sliced
+# ---------------------------------------------------------------------------
+
+def _check_flat_rows(words, start_bits, rows, alive, pic_type, full_pel,
+                     r_size, lane_of_row, long_rows):
+    NS = words.shape[0]
+    assert 0 < long_rows <= NS, (long_rows, NS)
+    for t in (start_bits, rows, alive, pic_type, full_pel, r_size,
+              lane_of_row):
+        assert t.shape == (NS,), t.shape
+
+
+def run_scan_bucketed_torch(
+        words, start_bits, rows, alive, pic_type, full_pel, r_size,
+        lane_of_row, *, mb_width: int, mb_height: int, n_lanes: int,
+        long_rows: int, steps_long: int, steps_short: int,
+        chunk: int = 128, lut, zigzag):
+    """Plain form of K1F: the lockstep FSM, each step's emissions set
+    into one [n_lanes, C1] buffer laid out [recs | nfinal | coeffs |
+    trash] as the JAX launcher's scatter buffer.  Same returns as
+    run_scan_bucketed."""
+    _check_flat_rows(words, start_bits, rows, alive, pic_type, full_pel,
+                     r_size, lane_of_row, long_rows)
+    NS = words.shape[0]
+    dev = words.device
+    mb_count = mb_width * mb_height
+    MB6 = mb_count * 6
+    C1 = mb_count * (1 + 6 + 384) + 1
+    bl, bs = _budget(steps_long, chunk), _budget(steps_short, chunk)
+    budget = torch.where(torch.arange(NS, device=dev) < long_rows, bl, bs)
+    words64 = words.long() & 0xFFFFFFFF
+    st = initial_state(start_bits, rows, alive, pic_type, full_pel,
+                       r_size)
+    steps = torch.zeros(NS, dtype=torch.int32, device=dev)
+    buf = torch.zeros(n_lanes * C1, dtype=torch.int32, device=dev)
+    base = lane_of_row.long() * C1
+    for t in range(max(bl, bs)):
+        live = (st["state"] != ST_DONE) & (budget > t)
+        if not bool(live.any()):
+            break
+        steps += live.to(torch.int32)
+        st, i1, v1 = scan_step(st, words64, lut, zigzag,
+                               mb_width=mb_width, mb_count=mb_count,
+                               live=live)
+        # a later step replaces an earlier one; rows without an emission
+        # write 0 into their lane's trash slot
+        buf[base + i1.long()] = v1
+    buf = buf.reshape(n_lanes, C1)
+    bad = st["error"] | (st["state"] != ST_DONE)
+    err = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    err.index_put_((lane_of_row.long(),), bad.to(torch.int32),
+                   accumulate=True)
+    return (wrap16(buf[:, mb_count + MB6:C1 - 1]),
+            buf[:, :mb_count].contiguous(),
+            buf[:, mb_count:mb_count + MB6].contiguous(), err > 0,
+            steps.max().to(torch.int32))
+
+
+def run_scan_bucketed(
+        words, start_bits, rows, alive, pic_type, full_pel, r_size,
+        lane_of_row, *, mb_width: int, mb_height: int, n_lanes: int,
+        long_rows: int, steps_long: int, steps_short: int,
+        chunk: int = 128, lut, zigzag):
+    """Two-budget slice scan into lane-minor buffers: the port of
+    vlc_scan_pallas.run_scan_pallas_bucketed (vlc_scan_pallas.py:
+    495-557) and, with long_rows = NS over unsorted rows (uniform
+    budget, chunk 256), of run_scan_pallas_sliced (:450-488).
+
+    Inputs as run_scan_bucketed_dense without perm; rows < long_rows
+    get steps_long, the rest steps_short, each rounded up to whole
+    chunks of min(chunk, steps).  Returns (coeffs int16[N, MB*384],
+    recs int32[N, MB], nfinal int32[N, MB*6], err bool[N], iters int32
+    scalar).  No duplicate slice claim is flagged: two rows that emit
+    into one slot leave one of the two values.  CPU tensors take the
+    plain form; CUDA tensors launch K1F (csrc/scan.cu)."""
+    global launches_flat
+    args = (words, start_bits, rows, alive, pic_type, full_pel, r_size,
+            lane_of_row)
+    kw = dict(mb_width=mb_width, mb_height=mb_height, n_lanes=n_lanes,
+              long_rows=long_rows, steps_long=steps_long,
+              steps_short=steps_short, chunk=chunk, lut=lut,
+              zigzag=zigzag)
+    if words.device.type == "cpu":
+        return run_scan_bucketed_torch(*args, **kw)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    from espflix_tpu_torch import build
+
+    _check_flat_rows(*args, long_rows)
+    _, bases, _ = _mega_lut_np()
+    if bases != LUT_BASES:
+        raise RuntimeError(f"LUT layout changed: {bases}")
+    dev = words.device
+    for t in args + (lut, zigzag):
+        build.check(t, dev, torch.int32)
+    NS, Wp = words.shape
+    mb_count = mb_width * mb_height
+    coeffs = torch.zeros((n_lanes, mb_count * 384), dtype=torch.int16,
+                         device=dev)
+    recs = torch.zeros((n_lanes, mb_count), dtype=torch.int32, device=dev)
+    nfinal = torch.zeros((n_lanes, mb_count * 6), dtype=torch.int32,
+                         device=dev)
+    err = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    build.launch(
+        "esp_scan_flat", *args, lut, zigzag, coeffs, recs, nfinal, err,
+        iters, NS, Wp, mb_width, mb_height, long_rows,
+        _budget(steps_long, chunk), _budget(steps_short, chunk))
+    launches_flat += 1
+    return coeffs, recs, nfinal, err, iters

@@ -26,8 +26,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from espflix_tpu.core import sbc_tables as ST
+from espflix_tpu_torch.core import sbc_tables as ST
 from espflix_tpu_torch.models import mpeg1 as M
+from espflix_tpu_torch.models.mpeg1 import xs_to_torch  # noqa: F401
 from espflix_tpu_torch.models import sbc as dsbc
 from espflix_tpu_torch.ops import composite as CO
 from espflix_tpu_torch.ops import delta_sigma as DS
@@ -53,33 +54,24 @@ def beep_wave(n_samples: int) -> np.ndarray:
     return (_SIN32[np.arange(n_samples) & 31] >> 2).astype(np.int16)
 
 
-def xs_to_torch(xs: dict, device) -> dict:
-    """Host xs (numpy, [K, ...]) -> tensors on `device`; uint32 word
-    buffers travel as int32 bit patterns."""
-    out = {}
-    for k, v in xs.items():
-        a = np.asarray(v)
-        if a.dtype == np.uint32:
-            a = a.view(np.int32)
-        out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return out
-
-
 def state_from_numpy(frames: dict, sbc_state, ds_state, device):
     """The JAX package's carries (numpy) -> the port's tensors: frames
     y/u/v uint8[N, 2, H, W] + parity int32[N], SBC history
-    int32[N, 2, 10, 16], PDM state int32[N, 3]."""
+    int32[N, 2, 10, 16], PDM state int32[N, 3].  A decode-only fleet
+    has no PDM state: ds_state None gives None."""
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype=dtype)).to(device)
     fr = {k: t(frames[k], np.uint8) for k in "yuv"}
     fr["parity"] = t(frames["parity"], np.int32)
-    return fr, t(sbc_state, np.int32), t(ds_state, np.int32)
+    return (fr, t(sbc_state, np.int32),
+            None if ds_state is None else t(ds_state, np.int32))
 
 
 def state_to_numpy(frames: dict, sbc_state, ds_state):
     """Inverse of state_from_numpy."""
     fr = {k: frames[k].cpu().numpy() for k in ("y", "u", "v", "parity")}
-    return fr, sbc_state.cpu().numpy(), ds_state.cpu().numpy()
+    return (fr, sbc_state.cpu().numpy(),
+            None if ds_state is None else ds_state.cpu().numpy())
 
 
 def audio_out(pcm, ds_state, beep_left, aud_act, starved, wave):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from espflix_tpu.video.render import PAUSE, PLAY, FFWD, RWND, show_time
+from espflix_tpu_torch.video.render import PAUSE, PLAY, FFWD, RWND, show_time
 from espflix_tpu_torch.ops import composite as C
 from espflix_tpu_torch.ops import delta_sigma as DS
 
@@ -37,7 +37,7 @@ def _host(a) -> np.ndarray:
 
 
 class OutputStage:
-    def __init__(self, n_lanes: int, pal: bool = False, device="cpu"):
+    def __init__(self, n_lanes: int, pal: bool = False, device="cuda"):
         self.n = n_lanes
         self.pal = pal
         self.osd = np.zeros((n_lanes, 16, 80), np.uint8)

@@ -19,9 +19,9 @@ from __future__ import annotations
 from dataclasses import dataclass
 from enum import Enum
 
-from espflix_tpu.runtime.checkpoint import PositionStore
-from espflix_tpu.streaming import index as idx
-from espflix_tpu.streaming.streamer import Streamer
+from espflix_tpu_torch.runtime.checkpoint import PositionStore
+from espflix_tpu_torch.streaming import index as idx
+from espflix_tpu_torch.streaming.streamer import Streamer
 from espflix_tpu_torch.runtime.session import make_stream_feed
 
 VID_NAMES = {-1: "/video_rwd.ts", 0: "/video.ts", 1: "/video_fwd.ts"}
@@ -50,7 +50,7 @@ class PlayerSession:
 
     def __init__(self, service_root: str, store: PositionStore | None = None,
                  streamer: Streamer | None = None, pal: bool = False):
-        from espflix_tpu.video.clock import PresentationClock
+        from espflix_tpu_torch.video.clock import PresentationClock
         self.root = service_root.rstrip("/")
         self.store = store or PositionStore()
         self.streamer = streamer or Streamer()

@@ -21,10 +21,10 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from espflix_tpu.core.bitio import BitReader
-from espflix_tpu.core import vlc_tables as V
-from espflix_tpu.streaming import native as NT
-from espflix_tpu.streaming.ts import TS_PACKET
+from espflix_tpu_torch.core.bitio import BitReader
+from espflix_tpu_torch.core import vlc_tables as V
+from espflix_tpu_torch.streaming import native as NT
+from espflix_tpu_torch.streaming.ts import TS_PACKET
 from espflix_tpu_torch.models.mpeg1 import PictureData, SequenceInfo
 
 

@@ -13,9 +13,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from espflix_tpu.tools import mpeg1_encode as E
-from espflix_tpu.tools.content import realistic_gop_script
-from espflix_tpu.tools.sbc_encode import random_frame
+from espflix_tpu_torch.tools import mpeg1_encode as E
+from espflix_tpu_torch.tools.content import realistic_gop_script
+from espflix_tpu_torch.tools.sbc_encode import random_frame
 from espflix_tpu_torch.models import mpeg1 as M
 from espflix_tpu_torch.models import sbc as dsbc
 from espflix_tpu_torch.ops import scan_dense as SD

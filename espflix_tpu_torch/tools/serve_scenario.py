@@ -1,20 +1,30 @@
-"""Serving integration scenario on the port (--stage full).
+"""Serving integration scenario on the port (--stage decode and full).
 
-The port of espflix_tpu.tools.serve_scenario's full-stage path: a
-fleet of PlayerSessions over HTTP-range streaming (or file://) against
-a generated service -- play, pause, 15x fast-forward and rewind with
-index seeks, +/-30 s skips, menu -> re-nav, continuous re-navigation of
-finished lanes, two injected corrupt pictures that must be contained
-and resynced, and a fleet snapshot at half-time restored into a second
-fleet -- with every chunk of K ticks run through Fleet.run_chunk_full
-(decode, composite fields, SBC and PDM on `--device`).
+The port of espflix_tpu.tools.serve_scenario: a fleet of PlayerSessions
+over HTTP-range streaming (or file://) against a generated service --
+play, pause, 15x fast-forward and rewind with index seeks, +/-30 s
+skips, menu -> re-nav, continuous re-navigation of finished lanes, two
+injected corrupt pictures that must be contained and resynced, and a
+fleet snapshot at half-time restored into a second fleet -- on
+`--device` (the card by default).
 
+  * --stage decode (the default): the decode-only fleet, dispatched
+    pipelined (Fleet.tick_submit / tick_collect, the default) or in
+    chunks of K = 4 ticks (--dispatch chunk, Fleet.run_chunk).  It runs
+    the Pallas parser, the port's only one; the JAX tool's default for
+    this stage is its 'device' parser, which presents the same frames
+    on clean streams;
+  * --stage full: every chunk of K = 4 ticks through
+    Fleet.run_chunk_full (decode, composite fields, SBC and PDM).
+
+    python3 -m espflix_tpu_torch.tools.serve_scenario --stage decode \\
+        --lanes 256 --ticks 16 [--dispatch chunk]
     python3 -m espflix_tpu_torch.tools.serve_scenario --stage full \\
-        --lanes 256 --ticks 16 --device cuda
+        --lanes 256 --ticks 16
+    ... --device cpu --transport file     # on the CPU, no HTTP server
 
 Prints one JSON line with the JAX tool's keys (serve_scenario.py:496-
-515).  --stage decode, --workers and --egress are not ported yet
-(NotImplementedError).
+515).  --workers and --egress are not ported yet (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -32,9 +42,9 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from espflix_tpu.core.bitio import BitWriter
-from espflix_tpu.runtime.events import Ev
-from espflix_tpu.tools.indexer import make_service
+from espflix_tpu_torch.core.bitio import BitWriter
+from espflix_tpu_torch.runtime.events import Ev
+from espflix_tpu_torch.tools.indexer import make_service
 from espflix_tpu_torch.models import mpeg1 as M
 from espflix_tpu_torch.runtime.player import PlayerSession, State
 from espflix_tpu_torch.runtime.scheduler import Fleet
@@ -137,7 +147,7 @@ def generate_service(root: str, titles: list[str], *, seed: int = 0,
                      n_gops: int = 4, gop: int = 6):
     """Full A/V service: video GOPs + a 48 kHz mono SBC track (SBC
     128-sample frames, one per 240 PTS ticks at 90 kHz)."""
-    from espflix_tpu.tools.sbc_encode import random_frame
+    from espflix_tpu_torch.tools.sbc_encode import random_frame
     rng = np.random.default_rng(seed)
     n_frames = n_gops * gop * 90000 // 30 // 240 + 8
     audio = [(random_frame(rng, mode=0, bitpool=28), k * 240)
@@ -146,10 +156,14 @@ def generate_service(root: str, titles: list[str], *, seed: int = 0,
                  audio_frames=audio)
 
 
-def build_fleet(url: str, lanes: int, titles: int, device="cpu") -> Fleet:
+def build_fleet(url: str, lanes: int, titles: int,
+                words_per_lane: int = 8192, stage: str = "decode",
+                device="cuda") -> Fleet:
     """A fleet of `lanes` sessions on `device`, lane i playing title
-    i % titles."""
-    fleet = Fleet(lanes, words_per_lane=8192, device=device)
+    i % titles: decode-only for stage "decode", with the output stage
+    and the full chain for "full"."""
+    fleet = Fleet(lanes, words_per_lane=words_per_lane,
+                  output=stage == "full", device=device)
     for i in range(lanes):
         s = PlayerSession(url)
         if not s.init_service():
@@ -161,15 +175,21 @@ def build_fleet(url: str, lanes: int, titles: int, device="cpu") -> Fleet:
 
 
 def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
-                 faults: int = 2, snapshot_at: int | None = None,
-                 tap_lanes=(0,)):
-    """Drive the fleet through `ticks` ticks in chunks of K = 4
-    (run_chunk_full) with scripted per-lane control actions and
-    injected faults at chunk boundaries.  Any lane whose title finished
-    (State.DONE) is re-navigated to a fresh title, so batch occupancy
-    never decays.  Returns (stats, snapshot) where snapshot is the
-    fleet snapshot taken in the chunk holding `snapshot_at` (or None).
-    """
+                 action_every: int = 4, faults: int = 2,
+                 decode_audio: bool = True,
+                 snapshot_at: int | None = None, churn: bool = True,
+                 dispatch: str = "pipelined", tap_lanes=(0,)):
+    """Drive the fleet through `ticks` ticks with scripted per-lane
+    control actions and injected faults (serve_scenario.py:173-324).
+
+    dispatch: "pipelined" (tick_submit / tick_collect, planes left on
+    the device; an action every `action_every` ticks), "chunk"
+    (run_chunk) or "full" (run_chunk_full, tapping `tap_lanes`) in
+    chunks of K = action_every ticks with actions, faults and snapshots
+    at chunk boundaries.  churn re-navigates any lane whose title
+    finished (State.DONE), so batch occupancy never decays.  Returns
+    (stats, snapshot) where snapshot is the fleet snapshot taken at
+    `snapshot_at` (or None)."""
     rng = np.random.default_rng(seed)
     n = fleet.n
     stats = ScenarioStats(lanes=n)
@@ -249,24 +269,49 @@ def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
             stats.tap_field_bytes += int(np.asarray(r.tap_fields).size)
 
     t0 = time.time()
-    # chunked dispatch: K ticks per chain call; control actions, faults
-    # and snapshots apply at chunk boundaries (worst-case action
-    # latency = K ticks)
-    K = 4
-    t = 0
-    while t < ticks:
-        reap_done()
-        for ft in list(fault_plan):
-            if t <= ft < t + K:
-                inject(fault_plan.pop(ft))
-        if t:
-            act()
-        if snapshot_at is not None and t <= snapshot_at < t + K:
-            snap = fleet.snapshot()
-        k = min(K, ticks - t)
-        for r in fleet.run_chunk_full(k, tap_lanes=tap_lanes):
-            account(r)
-        t += k
+    if dispatch == "pipelined":
+        pend = None
+        for t in range(ticks):
+            if churn:
+                reap_done()
+            if t in fault_plan:
+                inject(fault_plan[t])
+            if action_every and t and t % action_every == 0:
+                act()
+            if snapshot_at is not None and t == snapshot_at:
+                snap = fleet.snapshot()
+            nxt = fleet.tick_submit(decode_audio)
+            if pend is not None:
+                # serving shape: planes stay on the device; only the
+                # control words reach the host
+                account(fleet.tick_collect(pend, fetch_frames=False))
+            pend = nxt
+        if pend is not None:
+            account(fleet.tick_collect(pend, fetch_frames=False))
+    else:
+        # chunked dispatch: K ticks per device call; control actions,
+        # faults and snapshots apply at chunk boundaries (worst-case
+        # action latency = K ticks)
+        K = max(1, action_every)
+        t = 0
+        while t < ticks:
+            if churn:
+                reap_done()
+            for ft in list(fault_plan):
+                if t <= ft < t + K:
+                    inject(fault_plan.pop(ft))
+            if t:
+                act()
+            if snapshot_at is not None and t <= snapshot_at < t + K:
+                snap = fleet.snapshot()
+            k = min(K, ticks - t)
+            if dispatch == "full":
+                rs = fleet.run_chunk_full(k, tap_lanes=tap_lanes)
+            else:
+                rs = fleet.run_chunk(k, decode_audio, fetch_frames=False)
+            for r in rs:
+                account(r)
+            t += k
     stats.wall_s = time.time() - t0
     stats.ticks = ticks
     names = [e.ev for e in fleet.events.dump(10 ** 6)]
@@ -281,15 +326,25 @@ def main(argv=None):
     ap.add_argument("--titles", type=int, default=4)
     ap.add_argument("--gops", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-audio", action="store_true")
     ap.add_argument("--service", default=None,
                     help="existing service dir (default: generate)")
     ap.add_argument("--transport", choices=["http", "file"],
                     default="http",
                     help="file skips the local HTTP server")
-    ap.add_argument("--stage", choices=["decode", "full"], default="full",
-                    help="full = decode + composite fields + SBC + PDM "
-                         "(runtime/chain.py), chunk-dispatched; decode "
-                         "is not ported yet")
+    ap.add_argument("--stage", choices=["decode", "full"],
+                    default="decode",
+                    help="decode = the decode-only fleet on the Pallas "
+                         "parser, the port's only one (the JAX tool's "
+                         "default for this stage is its 'device' parser, "
+                         "which presents the same frames on clean "
+                         "streams); full = decode + composite fields + "
+                         "SBC + PDM (runtime/chain.py), chunk-dispatched")
+    ap.add_argument("--dispatch", choices=["pipelined", "chunk", "full"],
+                    default=None,
+                    help="device dispatch (default: pipelined for "
+                         "--stage decode, full-chain chunks for "
+                         "--stage full)")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the fleet (cuda or cpu)")
     ap.add_argument("--workers", type=int, default=0,
@@ -297,12 +352,12 @@ def main(argv=None):
     ap.add_argument("--egress", type=int, default=0,
                     help="paced egress of N tapped lanes (not ported yet)")
     args = ap.parse_args(argv)
-    if args.stage != "full":
-        raise NotImplementedError("--stage decode is not ported yet")
     if args.workers:
         raise NotImplementedError("--workers (HostPool) is not ported yet")
     if args.egress:
         raise NotImplementedError("--egress is not ported yet")
+    dispatch = args.dispatch or (
+        "full" if args.stage == "full" else "pipelined")
 
     root = args.service
     generated = root is None
@@ -318,21 +373,23 @@ def main(argv=None):
         url, shutdown = "file://" + root, (lambda: None)
     print(f"service at {url}", file=sys.stderr)
 
+    run_kw = dict(decode_audio=not args.no_audio, dispatch=dispatch)
     try:
-        fleet = build_fleet(url, args.lanes, args.titles,
+        fleet = build_fleet(url, args.lanes, args.titles, stage=args.stage,
                             device=args.device)
         stats, snap = run_scenario(fleet, args.ticks, seed=args.seed,
-                                   snapshot_at=args.ticks // 2)
+                                   snapshot_at=args.ticks // 2, **run_kw)
         # snapshot/restore into a second fleet: every playing lane
         # resumes at its saved position
         restored = 0
         restored_ok = False
         if snap is not None:
             fleet2 = build_fleet(url, args.lanes, args.titles,
-                                 device=args.device)
+                                 stage=args.stage, device=args.device)
             restored = fleet2.restore(snap)
             rstats, _ = run_scenario(fleet2, max(4, args.ticks // 8),
-                                     seed=args.seed + 1, faults=0)
+                                     seed=args.seed + 1, faults=0,
+                                     **run_kw)
             restored_ok = rstats.frames > 0
     finally:
         shutdown()
@@ -343,7 +400,7 @@ def main(argv=None):
         "lanes": args.lanes,
         "ticks": stats.ticks,
         "stage": args.stage,
-        "dispatch": "full",
+        "dispatch": dispatch,
         "full_ticks": stats.full_ticks,
         "tap_field_bytes": stats.tap_field_bytes,
         "min_lane_frames": int(stats.frames_per_lane.min()),

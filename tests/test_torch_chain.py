@@ -167,7 +167,8 @@ def test_port_imports_no_jax(tmp_path):
         "assert not out[3]['err'].any()\n"
         "root = sys.argv[1]\n"
         "SS.generate_service(root, ['a', 'b'], seed=1, n_gops=1)\n"
-        "fleet = SS.build_fleet('file://' + root, 2, 2)\n"
+        "fleet = SS.build_fleet('file://' + root, 2, 2, stage='full',\n"
+        "                       device='cpu')\n"
         "rs = fleet.run_chunk_full(2, tap_lanes=(1,))\n"
         "assert len(rs) == 2 and sum(int(r.video_lanes.sum()) "
         "for r in rs) == 4\n"

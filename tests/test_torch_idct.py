@@ -5,7 +5,10 @@ idct.block_residuals_T (XLA), idct_pallas.block_residuals_T_pallas
 (interpret mode) and the lane-minor idct_pallas.block_residuals_pallas,
 and through the port's block_residuals_T.  Exact equality: nfinal 0, 1
 and more, intra and non-intra blocks, and levels at the +-2048 clip
-extremes.
+extremes.  The lane-minor entry block_residuals_flat (K2F's plain
+form), with each block's intra flag and qscale taken from its MB
+record, equals idct.block_residuals_flat (XLA, cast to int16 as the
+lane-minor dense phase does) and idct_pallas.block_residuals_pallas.
 """
 
 import numpy as np
@@ -128,3 +131,72 @@ def test_kernel_matches_plain_on_card(seed):
     args = [torch.from_numpy(a) for a in _inputs(seed)]
     got = TI.block_residuals_T(*[a.cuda() for a in args])
     assert torch.equal(got.cpu(), TI.block_residuals_T(*args))
+
+
+# ---- lane-minor entry (K2F) ---------------------------------------------
+
+def _flat_inputs(seed):
+    """_inputs with one intra flag and qscale per MB, as MB records:
+    (coeffs int16[N, MB*384], recs, nfinal, iq, nq, intra / qscale per
+    block)."""
+    lev, intra, qs, iq, nq, nf = _inputs(seed)
+    N, _, BL = lev.shape
+    MB = BL // 6
+    rng = np.random.default_rng(100 + seed)
+    intra_mb = intra[:, ::6]
+    kind = np.where(intra_mb, 3, rng.integers(1, 3, (N, MB)))
+    mv = rng.integers(0, 1 << 24, (N, MB)) << 7
+    recs = (kind | (qs[:, ::6] << 2) | mv).astype(np.int32)
+    coeffs = lev.transpose(0, 2, 1).reshape(N, MB * 384)
+    return (np.ascontiguousarray(coeffs), recs, nf, iq, nq,
+            np.repeat(intra_mb, 6, axis=1), np.repeat(qs[:, ::6], 6, axis=1))
+
+
+def _port_flat(coeffs, recs, nf, iq, nq, device="cpu"):
+    return TI.block_residuals_flat(*[torch.from_numpy(a).to(device) for a in
+                                     (coeffs, recs, nf, iq, nq)]).cpu()
+
+
+@pytest.fixture(scope="module")
+def flat_refs():
+    out = {}
+    for seed in SEEDS:
+        coeffs, recs, nf, iq, nq, intra, qs = _flat_inputs(seed)
+        N, BL = nf.shape
+        MB = BL // 6
+        lv = coeffs.reshape(N, MB, 6, 64).astype(np.int32)
+        ib, qb = intra.reshape(N, MB, 6), qs.reshape(N, MB, 6)
+        qmat = np.where(ib[..., None], iq[:, None, None, :],
+                        nq[:, None, None, :])
+        args = [jnp.asarray(a) for a in (lv, ib, qb, qmat,
+                                         nf.reshape(N, MB, 6))]
+        xla = np.asarray(JI.block_residuals_flat(*args)
+                         .astype(jnp.int16)).reshape(N, BL, 64)
+        pal = np.asarray(JIP.block_residuals_pallas(*args, interpret=True)
+                         ).reshape(N, BL, 64).astype(np.int16)
+        port = _port_flat(coeffs, recs, nf, iq, nq).numpy()
+        out[seed] = (xla, pal, port, intra, nf)
+    return out
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_flat_matches_xla_block_residuals_flat(flat_refs, seed):
+    xla, _pal, port, _i, _n = flat_refs[seed]
+    assert port.dtype == np.int16 and port.shape == xla.shape
+    assert np.array_equal(port, xla)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_flat_matches_lane_minor_pallas_kernel(flat_refs, seed):
+    _xla, pal, port, intra, nf = flat_refs[seed]
+    assert np.array_equal(port, pal)
+    assert ((nf == 1) & ~intra).any() and (nf == 0).any() and intra.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", SEEDS)
+def test_flat_kernel_matches_plain_on_card(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _flat_inputs(seed)[:5]
+    assert torch.equal(_port_flat(*args, device="cuda"), _port_flat(*args))

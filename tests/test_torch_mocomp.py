@@ -14,6 +14,13 @@ parity put.  References, same numpy inputs:
   * models/mpeg1.dense_compose on the coeffs_T path: STALE / SKIP /
     INTER / INTRA mixes, inactive lanes and random parities, comparing
     the new frames, the parity and the presented planes.
+
+The lane-minor entry (K3F's plain form, predict_compose_put_flat, fed
+[N, MB*6, 64] residuals) against models/mpeg1.dense_compose's lane-minor
+branch (XLA, through the port's dense_compose_flat) with out-of-frame
+and edge half-pel vectors, and against compose_plane_pallas /
+compose_plane_pallas2 (interpret mode) per plane, all four MB kinds and
+inactive lanes.
 """
 
 import numpy as np
@@ -228,6 +235,126 @@ def test_dense_compose_matches_jax(seed, oof):
         assert np.array_equal(tp[k].numpy(), np.asarray(jp[k])), k
     kinds = recs & 3
     assert set(np.unique(kinds)) == {0, 1, 2, 3}
+
+
+# ---- lane-minor entry (K3F) ---------------------------------------------
+
+def _flat_planes_np(res, mbw, mbh):
+    """The JAX package's lane-minor residual-plane assembly
+    (mpeg1.py:595-609) in numpy: res [N, MB*6, 64] -> y, u, v planes."""
+    N = res.shape[0]
+    W = mbw * 16
+    r = res.reshape(N, mbh, mbw, 6, 64)
+    ry = np.stack([r[:, :, :, 2 * a:2 * a + 2, 8 * k:8 * k + 8]
+                   .reshape(N, mbh, W) for a in range(2) for k in range(8)],
+                  axis=2).reshape(N, mbh * 16, W)
+    ru, rv = (np.stack([r[:, :, :, b, 8 * k:8 * k + 8].reshape(
+        N, mbh, W // 2) for k in range(8)], axis=2).reshape(
+            N, mbh * 8, W // 2) for b in (4, 5))
+    return ry, ru, rv
+
+
+@pytest.mark.parametrize("name", ["compose_plane_pallas",
+                                  "compose_plane_pallas2"])
+@pytest.mark.parametrize("S", [16, 8])
+def test_flat_compose_matches_fused_kernels(name, S):
+    """predict_compose_put_flat vs the JAX fused compose kernels, per
+    plane, on in-frame vectors (the references' window roll is checked
+    inside the plane; out-of-frame vectors are held against the XLA
+    lane-minor branch below)."""
+    rng = np.random.default_rng(80 + S)
+    N, mbh, mbw = 3, 4, 6
+    recs = _recs(rng, N, mbh, mbw, False)
+    res = rng.integers(-300, 300, (N, mbh * mbw * 6, 64)).astype(np.int16)
+    active = np.array([True, False, True])
+    planes = {k: rng.integers(0, 249, (N, 2) + (
+        (mbh * 16, mbw * 16) if k == "y" else (mbh * 8, mbw * 8)),
+        dtype=np.uint8) for k in "yuv"}
+    parity = np.array([1, 0, 0], np.int32)
+    fr = {k: torch.from_numpy(v.copy()) for k, v in planes.items()}
+    fr["parity"] = torch.from_numpy(parity)
+    pres = TMC.predict_compose_put_flat(
+        torch.from_numpy(res), torch.from_numpy(recs),
+        torch.from_numpy(active), fr, mb_width=mbw, mb_height=mbh)
+    ry, ru, _rv = _flat_planes_np(res, mbw, mbh)
+    key, resid = ("y", ry) if S == 16 else ("u", ru)
+    kind = (recs & 3).reshape(N, mbh, mbw)
+    _k, mh, mv = (a.numpy() for a in TMC.mb_fields(
+        torch.from_numpy(recs), mbw, mbh))
+    if S == 8:
+        mh, mv = mh >> 1, mv >> 1
+    lanes = np.arange(N)
+    j = np.asarray(getattr(JMP, name)(
+        jnp.asarray(planes[key][lanes, 1 - parity]),
+        jnp.asarray(planes[key][lanes, parity]), jnp.asarray(resid),
+        jnp.asarray(kind), jnp.asarray(mh), jnp.asarray(mv),
+        jnp.asarray(active), S, interpret=True))
+    assert np.array_equal(pres[key].numpy(), j)
+    assert np.array_equal(fr[key][lanes, parity].numpy(), j)
+    assert set(np.unique(kind)) == {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("oof", [False, True])
+def test_flat_dense_compose_matches_jax(seed, oof):
+    """dense_compose_flat (K2F + K3F plain forms) vs the lane-minor
+    branch of the JAX dense_compose (coeffs_T=None, XLA)."""
+    coeffs_T, recs, nf, iq, nq, active, frames, mbw, mbh = \
+        _dense_inputs(seed, oof)
+    N = recs.shape[0]
+    coeffs = np.ascontiguousarray(coeffs_T.transpose(0, 2, 1)).reshape(N, -1)
+    jf, jp = JM.dense_compose(
+        jnp.asarray(coeffs), jnp.asarray(recs), jnp.asarray(nf),
+        jnp.asarray(iq), jnp.asarray(nq), jnp.asarray(active),
+        {k: jnp.asarray(v) for k, v in frames.items()},
+        mb_width=mbw, mb_height=mbh)
+    tfr = {k: torch.from_numpy(v.copy()) for k, v in frames.items()}
+    tf, tp = TM.dense_compose_flat(
+        torch.from_numpy(coeffs), torch.from_numpy(recs),
+        torch.from_numpy(nf), torch.from_numpy(iq), torch.from_numpy(nq),
+        torch.from_numpy(active), tfr, mb_width=mbw, mb_height=mbh)
+    for k in ("y", "u", "v", "parity"):
+        a, b = tf[k].numpy(), np.asarray(jf[k])
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
+    for k in "yuv":
+        assert np.array_equal(tp[k].numpy(), np.asarray(jp[k])), k
+    assert not active.all()
+
+
+def test_flat_residual_planes_match_jax_assembly():
+    rng = np.random.default_rng(90)
+    res = rng.integers(-999, 999, (2, 4 * 6 * 6, 64)).astype(np.int16)
+    got = TMC.residual_planes_flat(torch.from_numpy(res), 6, 4)
+    for a, b in zip(got, _flat_planes_np(res, 6, 4)):
+        assert np.array_equal(a.numpy(), b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("oof", [False, True])
+def test_flat_kernel_matches_plain_on_card(oof):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(75 + oof)
+    N, mbh, mbw = 4, 12, 22
+    recs = _recs(rng, N, mbh, mbw, oof)
+    res = rng.integers(-300, 300, (N, mbh * mbw * 6, 64)).astype(np.int16)
+    active = np.array([True, False, True, True])
+    frames = {k: rng.integers(0, 256, (N, 2) + (
+        (192, 352) if k == "y" else (96, 176)), dtype=np.uint8)
+        for k in "yuv"}
+    frames["parity"] = np.array([1, 1, 0, 0], np.int32)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        fr = {k: torch.from_numpy(v.copy()).to(dev)
+              for k, v in frames.items()}
+        p = TMC.predict_compose_put_flat(
+            torch.from_numpy(res).to(dev), torch.from_numpy(recs).to(dev),
+            torch.from_numpy(active).to(dev), fr, mb_width=mbw,
+            mb_height=mbh)
+        outs.append([t.cpu() for t in (p["y"], p["u"], p["v"], fr["y"],
+                                       fr["u"], fr["v"])])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -139,7 +139,7 @@ def test_output_tick_state_matches():
     prev = (rng.integers(0, 256, (n, 192, 352), dtype=np.uint8),
             rng.integers(0, 256, (n, 96, 176), dtype=np.uint8),
             rng.integers(0, 256, (n, 96, 176), dtype=np.uint8))
-    jo, to = JOUT.OutputStage(n), TOUT.OutputStage(n)
+    jo, to = JOUT.OutputStage(n), TOUT.OutputStage(n, device="cpu")
     assert np.array_equal(to.pdm_state.numpy(), np.asarray(jo.pdm_state))
     for t in range(14):
         for o in (jo, to):
@@ -232,7 +232,7 @@ def served(service, python_feed):
     jf = JSCH.Fleet(LANES, words_per_lane=8192, parser="pallas",
                     output=True)
     jr = _serve(jf, JPL, JSS, url, prev)
-    tf = TSCH.Fleet(LANES, words_per_lane=8192, device="cpu")
+    tf = TSCH.Fleet(LANES, words_per_lane=8192, output=True, device="cpu")
     # record whether each of the port's chain calls ran scrolled
     chain_forward = tf.chain.forward
 
