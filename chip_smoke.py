@@ -12,10 +12,12 @@ line is printed):
    the card's name and power limit (nvidia-smi);
 2. build: compiles espflix_tpu_torch/csrc/*.cu for sm_90a (build/), one
    nvcc per source, all at once, and the sessions' native TS demuxer;
-3. kernels: each of the eight entry points -- K1-K5 and the lane-minor
-   K1F, K2F, K3F -- against its plain PyTorch version on the card at
-   the main path's shapes (the bench tick's 1,024 lanes at 352x192),
-   exact equality, CUDA-event medians, and the bound of its work;
+3. kernels: each of the ten entry points -- K1-K5, the lane-minor
+   K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
+   B over a band) and the sequential scan K1S -- against its plain
+   PyTorch version on the card at the main path's shapes (the bench
+   tick's 1,024 lanes at 352x192), exact equality, CUDA-event medians,
+   and the bound of its work;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -38,10 +40,23 @@ line is printed):
    K1F, K2F and K3F all launched; then 4 ticks per dispatch, and 4 of
    a one-lane fleet (the small-fleet branch), through the kernels and
    through the plain forms: every TickResult field and carry identical;
-8. the total seconds, the card's name and power limit, one JSON line
+8. the mesh: a 4-shard 'streams' mesh (one card per shard when four
+   are visible, else cuda:0 four times) over the same HTTP service and
+   lanes -- the pallas parser (K1, K2, K3P per shard) and the device
+   parser (K1S per shard), 8 ticks pipelined and 8 in chunks of 4,
+   each equal in every TickResult field to the unsharded fleet; then
+   3 ticks a parser in which every K3P call, and K1S's first call and
+   each one with a lane in error, is held against its plain form on
+   the call's own inputs (a shard's lanes, the serving word window);
+   run_chunk_full under the mesh (8 ticks in chunks of 4, one tap
+   lane) equal to the unsharded full fleet; the 'space' split
+   (make_space_sharded_dense, a 2 x 2 mesh: K2F and K3P rule B) equal
+   to the unsharded band form through the plain forms on a P picture;
+   K3P and K1S launched;
+9. the total seconds, the card's name and power limit, one JSON line
    with the kernels' numbers (launches: serving A's for K1-K5, the
-   decode-only serving's for K1F-K3F), and the final {"ok": true, ...}
-   line.
+   decode-only serving's for K1F-K3F, the mesh phase's for K3P and
+   K1S), and the final {"ok": true, ...} line.
 
 Imports nothing of JAX.
 """
@@ -122,8 +137,8 @@ def require_equal(name, pairs):
 
 @contextlib.contextmanager
 def plain_forms():
-    """Route the eight kernel wrappers to their plain PyTorch versions
-    (for the on-card comparison runs)."""
+    """Route the kernel wrappers to their plain PyTorch versions (for
+    the on-card comparison runs)."""
     from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
@@ -139,11 +154,52 @@ def plain_forms():
              (VS, "run_scan_bucketed", VS.run_scan_bucketed_torch),
              (IDCT, "block_residuals_flat", IDCT.block_residuals_flat_torch),
              (MC, "predict_compose_put_flat",
-              MC.predict_compose_put_flat_torch)]
+              MC.predict_compose_put_flat_torch),
+             (MC, "predict_plane_rows", MC.predict_plane_rows_torch)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
             setattr(m, n, f)
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+@contextlib.contextmanager
+def checked_calls(seen: dict):
+    """Hold the path's own calls of K3P (every one) and K1S (the first,
+    and each one with a lane in error) against their plain forms on the
+    same inputs.  The kernel launch is the path's; the plain forms
+    launch none.  seen[name] counts the calls, the checked calls and the
+    checked calls with a lane in error."""
+    from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    swaps = [(MC, "predict_plane", MC.predict_plane_torch, "K3P_predict"),
+             (MC, "predict_plane_rows", MC.predict_plane_rows_torch,
+              "K3P_predict"),
+             (VS, "run_scan", VS.run_scan_torch, "K1S_slice_scan_seq")]
+
+    def checked(kernel, plain, name):
+        def call(*a, **kw):
+            out = kernel(*a, **kw)
+            s = seen.setdefault(name, dict(calls=0, checked=0, errored=0))
+            s["calls"] += 1
+            bad = isinstance(out, tuple) and bool(out[3].any())
+            if name == "K3P_predict" or not s["checked"] or bad:
+                ref = plain(*a, **kw)
+                pairs = list(zip(out, ref)) if isinstance(out, tuple) \
+                    else [(out, ref)]
+                require_equal(f"{name}, mesh path call {s['calls']}", pairs)
+                s["checked"] += 1
+                s["errored"] += bad
+            return out
+        return call
+
+    saved = [(m, n, getattr(m, n)) for m, n, _, _ in swaps]
+    try:
+        for m, n, plain, name in swaps:
+            setattr(m, n, checked(getattr(m, n), plain, name))
         yield
     finally:
         for m, n, f in saved:
@@ -217,7 +273,9 @@ def kernel_counters() -> dict:
             "K5_pdm": (DS, "launches"),
             "K1F_slice_scan_flat": (VS, "launches_flat"),
             "K2F_dequant_idct_flat": (IDCT, "launches_flat"),
-            "K3F_predict_compose_put_flat": (MC, "launches_flat")}
+            "K3F_predict_compose_put_flat": (MC, "launches_flat"),
+            "K3P_predict": (MC, "launches_predict"),
+            "K1S_slice_scan_seq": (VS, "launches_seq")}
 
 
 CHAIN_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
@@ -227,6 +285,10 @@ DECODE_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
                   "K3_predict_compose_put", "K1F_slice_scan_flat",
                   "K2F_dequant_idct_flat", "K3F_predict_compose_put_flat")
 FLAT_KERNELS = DECODE_KERNELS[3:]
+MESH_PALLAS_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
+                       "K3P_predict")
+MESH_DEVICE_KERNELS = ("K1S_slice_scan_seq", "K2F_dequant_idct_flat",
+                       "K3F_predict_compose_put_flat")
 
 
 def reset_counts():
@@ -557,6 +619,319 @@ def decode_parity(dev, url: str, lanes: int, ticks: int = 4,
             f"{ticks} + 4 carries; kernel launches {ck})")
 
 
+def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
+                        reps: int, mbw: int, mbh: int, dev) -> list:
+    """K3P and K1S against their plain versions at the bench tick's
+    1,024 lanes: K3P over the y, u and v planes (three launches, as
+    the mesh's decoder makes them) with the vectors of the P-heavy tick
+    `x_p` and with random vectors past every edge, rule A over whole
+    planes and rule B over a band of MB rows 3-8; K1S over the pictures
+    of the I-heavy tick `x_i_pics`.  Returns their kernel entries."""
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    from espflix_tpu_torch.runtime import chain as CH
+
+    out = []
+    N = x_p["active"].shape[0]
+    ckw = dict(mb_width=mbw, mb_height=mbh, n_lanes=N,
+               long_rows=min(2 * N, N * mbh // 2), steps_long=1024,
+               steps_short=384, chunk=128, lut=chain.scan_lut,
+               zigzag=chain.zigzag)
+    recs = VS.run_scan_bucketed_dense(
+        *[x_p[k] for k in CH.DECODE_KEYS[:9]], **ckw)[1]
+    _kind, mv_h, mv_v = MC.mb_fields(recs, mbw, mbh)
+    fr = rand_frames()
+    lanes = torch.arange(N, device=dev)
+    refs = [fr[k][lanes, 1 - fr["parity"].long()].contiguous()
+            for k in "yuv"]
+    sizes = (16, 8, 8)
+
+    def scaled(mh, mv):
+        return [(mh, mv), (mh >> 1, mv >> 1), (mh >> 1, mv >> 1)]
+
+    def run(fn, mvs):
+        return [fn(r, mh, mv, S) for r, (mh, mv), S in zip(refs, mvs, sizes)]
+
+    def run_band(fn, mvs, row0=3, rows=6):
+        return [fn(r, mh[:, row0:row0 + rows].contiguous(),
+                   mv[:, row0:row0 + rows].contiguous(), S, row0)
+                for r, (mh, mv), S in zip(refs, mvs, sizes)]
+
+    mvs = scaled(mv_h, mv_v)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rnd = scaled(*(torch.randint(-48, 49, mv_h.shape, generator=g,
+                                 dtype=torch.int32).to(dev)
+                   for _ in range(2)))
+    preds = run(MC.predict_plane, mvs)
+    err = require_equal("K3P rule A", zip(preds,
+                                          run(MC.predict_plane_torch, mvs)))
+    err = max(err, require_equal(
+        "K3P rule A, vectors past the edges",
+        zip(run(MC.predict_plane, rnd), run(MC.predict_plane_torch, rnd))))
+    err = max(err, require_equal(
+        "K3P rule B, band of MB rows 3-8",
+        zip(run_band(MC.predict_plane_rows, rnd),
+            run_band(MC.predict_plane_rows_torch, rnd))))
+    out.append(dict(
+        name="K3P_predict", route="cuda",
+        source="espflix_tpu_torch/csrc/compose.cu",
+        replaces="espflix_tpu/ops/mocomp_pallas.py:47,350,501,613,747",
+        max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: run(MC.predict_plane, mvs), reps),
+        plain_ms=time_ms(lambda: run(MC.predict_plane_torch, mvs), reps)))
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
+        *refs, *[m for pair in mvs for m in pair], *preds))
+    log(f"[kernel] {out[-1]} (y, u and v: three launches)")
+
+    b = M.make_picture_batch(x_i_pics, words_per_lane=wpl, max_slices=mbh)
+    xs = list(M.xs_to_torch({k: b[k] for k in M.PICTURE_KEYS[:7]},
+                            dev).values())
+    skw = dict(mb_width=mbw, mb_height=mbh, max_steps=12000,
+               lut=chain.scan_lut, zigzag=chain.zigzag)
+    got = VS.run_scan(*xs, **skw)
+    # the plain scan takes seconds: its one run is the check and the time
+    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    ref = VS.run_scan_torch(*xs, **skw)
+    e.record()
+    torch.cuda.synchronize()
+    err = require_equal("K1S scan", zip(got, ref))
+    if got[3].any():
+        raise AssertionError("K1S: lane errors on well-formed content")
+    out.append(dict(
+        name="K1S_slice_scan_seq", route="cuda",
+        source="espflix_tpu_torch/csrc/scan.cu",
+        replaces="espflix_tpu/ops/vlc_scan.py:662 (XLA run_scan; no "
+                 "Pallas kernel)",
+        max_abs_err=err, library_ms=None,
+        ms=time_ms(lambda: VS.run_scan(*xs, **skw), reps),
+        plain_ms=a.elapsed_time(e)))
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
+        *xs, chain.scan_lut, chain.zigzag, *got))
+    log(f"[kernel] {out[-1]} ({int(got[4])} steps, words/lane "
+        f"{xs[0].shape[1]}, {int(b['n_slices'].sum())} slices)")
+    torch.cuda.synchronize()
+    return out
+
+
+def mesh_devices(n: int):
+    """n devices for an n-shard mesh: one card each when n cards are
+    visible, else cuda:0 n times; and how, in words."""
+    import torch
+    k = torch.cuda.device_count()
+    if k >= n:
+        return ([torch.device("cuda", i) for i in range(n)],
+                f"{n} cards, one shard each")
+    return ([torch.device("cuda", 0)] * n,
+            f"cuda:0 {n} times ({k} card visible)")
+
+
+def sync_all():
+    """Wait for every visible card (a mesh may span several)."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def require_same_results(label, rk, rp, keys):
+    """Raise unless two runs' TickResults agree in `keys`."""
+    import numpy as np
+    import torch
+    if len(rk) != len(rp) or not rk:
+        raise AssertionError(f"{label}: {len(rk)} vs {len(rp)} results")
+    for t, (a, b) in enumerate(zip(rk, rp)):
+        for key in keys:
+            x, y = getattr(a, key), getattr(b, key)
+            if isinstance(x, torch.Tensor):
+                require_equal(f"{label} tick {t} {key}", [(x, y)])
+            elif not np.array_equal(x, y):
+                raise AssertionError(f"{label} tick {t}: {key} differs")
+    return len(rk) * len(keys)
+
+
+def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
+               seed: int = 0) -> dict:
+    """Phase 8: the fleet under a 4-shard 'streams' mesh against the
+    unsharded fleet on the same service, then the 'space' split.
+    Returns the launch counts of the mesh runs."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    from espflix_tpu_torch.parallel import mesh as PM
+    from espflix_tpu_torch.tools import mpeg1_encode as E
+    from espflix_tpu_torch.tools import serve_scenario as SS
+    from espflix_tpu_torch.tools.content import realistic_gop_script
+
+    devices, how = mesh_devices(4)
+    mesh = PM.make_mesh(4, devices=devices)
+    log(f"[mesh] 4-shard 'streams' mesh on {how}; {lanes} lanes over "
+        f"HTTP, {ticks} ticks a run")
+    counts = {}
+
+    def joined(fleet, x):
+        return PM.unshard(fleet.mesh, x, PM.LANES) \
+            if isinstance(x, PM.Sharded) else x
+
+    keys = ("video_lanes", "pts", "errors", "audio_lanes", "pcm",
+            "pcm_samples", "audio_starved", "audio_errors", "y", "u", "v")
+    for parser, kernels in (("pallas", MESH_PALLAS_KERNELS),
+                            ("device", MESH_DEVICE_KERNELS)):
+        for dispatch, method in (("pipelined", "tick_collect"),
+                                 ("chunk", "run_chunk")):
+            # under a mesh the device parser's run_chunk decodes tick by
+            # tick, as the JAX fleet's does, so a fault's resync lands a
+            # tick before the unsharded chunk's: that pair runs clean
+            faults = 0 if (parser, dispatch) == ("device", "chunk") else 1
+            runs = []
+            for m in (None, mesh):
+                fleet = SS.build_fleet(url, lanes, 2, device=dev,
+                                       parser=parser, mesh=m)
+                rs = record_results(fleet, method)
+                sync_all()
+                reset_counts()
+                stats, _ = SS.run_scenario(fleet, ticks, seed=seed,
+                                           faults=faults, dispatch=dispatch)
+                sync_all()
+                if m is not None:
+                    c = read_counts(f"mesh {parser} {dispatch}", kernels)
+                    for k, v in c.items():
+                        counts[k] = counts.get(k, 0) + v
+                runs.append((fleet, rs, stats))
+            (fu, ru, su), (fm, rm, sm) = runs
+            n_cmp = require_same_results(f"mesh {parser} {dispatch}", rm,
+                                         ru, keys)
+            require_equal(f"mesh {parser} {dispatch} carries",
+                          [(joined(fm, fm.frames[k]), fu.frames[k])
+                           for k in ("y", "u", "v", "parity")]
+                          + [(fm.sbc_state, fu.sbc_state)])
+            log(f"[mesh {parser} {dispatch}] {lanes} lanes x {ticks} "
+                f"ticks: mesh == unsharded ({n_cmp} TickResult fields + 5 "
+                f"carries); ms/tick mesh "
+                f"{1000 * sm.wall_s / ticks:.1f}, unsharded "
+                f"{1000 * su.wall_s / ticks:.1f}; frames {sm.frames}, "
+                f"errors {sm.errors}, resyncs {sm.resyncs} | {smi}")
+
+    # the mesh path's own K3P and K1S calls against their plain forms
+    # (the fault lands on tick 2)
+    for parser, name in (("pallas", "K3P_predict"),
+                         ("device", "K1S_slice_scan_seq")):
+        fleet = SS.build_fleet(url, lanes, 2, device=dev, parser=parser,
+                               mesh=mesh)
+        seen = {}
+        t0 = time.perf_counter()
+        with checked_calls(seen):
+            stats, _ = SS.run_scenario(fleet, 3, seed=seed, faults=1,
+                                       dispatch="pipelined")
+        sync_all()
+        s = seen.get(name, {})
+        if not s.get("checked"):
+            raise AssertionError(f"mesh {parser}: no {name} call checked")
+        log(f"[mesh {parser} checked] {lanes} lanes x 3 ticks: {name} == "
+            f"plain form in {s['checked']} of its {s['calls']} calls on "
+            f"the mesh path ({s['errored']} of them with a lane in error; "
+            f"the run's errors {stats.errors}), "
+            f"{time.perf_counter() - t0:.1f} s with the checks")
+
+    # run_chunk_full under the mesh, one tapped lane
+    tap = (lanes // 2 + 1,)
+    runs = []
+    for m in (None, mesh):
+        fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev,
+                               mesh=m)
+        rs = record_results(fleet)
+        sync_all()
+        reset_counts()
+        stats, _ = SS.run_scenario(fleet, ticks, seed=seed, faults=1,
+                                   tap_lanes=tap, dispatch="full")
+        sync_all()
+        if m is not None:
+            full_counts = read_counts("mesh full chain", CHAIN_KERNELS)
+        runs.append((fleet, rs, stats))
+    (fu, ru, su), (fm, rm, sm) = runs
+    n_cmp = require_same_results(
+        "mesh full chain", rm, ru,
+        ("video_lanes", "pts", "errors", "audio_lanes", "audio_starved",
+         "audio_errors", "field_sum", "pdm_sum", "tap_fields", "tap_pdm",
+         "y", "u", "v"))
+    require_equal("mesh full chain carries",
+                  [(joined(fm, fm.frames[k]), fu.frames[k])
+                   for k in ("y", "u", "v", "parity")]
+                  + [(joined(fm, fm.sbc_state), fu.sbc_state),
+                     (joined(fm, fm.output.pdm_state), fu.output.pdm_state)])
+    tap_sums_match(rm, tap)
+    log(f"[mesh full chain] {lanes} lanes x {ticks} ticks in chunks of 4, "
+        f"tap {tap}: mesh == unsharded ({n_cmp} TickResult fields + 6 "
+        f"carries); ms/tick mesh {1000 * sm.wall_s / ticks:.1f}, "
+        f"unsharded {1000 * su.wall_s / ticks:.1f}; launches "
+        f"{full_counts} | {smi}")
+
+    # the 'space' split on a P picture decoded after its I picture
+    smesh = PM.make_space_mesh(2, 2, devices=devices)
+    streams = [M.parse_es(E.encode_es(realistic_gop_script(
+        np.random.default_rng(2000 + s), n_pictures=2)))[1]
+        for s in range(8)]
+    mbw, mbh = streams[0][0].seq.mb_width, streams[0][0].seq.mb_height
+    tables = M.decode_tables(dev)
+    frames = M.init_frame_state(lanes, mbw * 16, mbh * 16, dev)
+    for k in range(2):
+        b = M.make_picture_batch([streams[i % 8][k] for i in range(lanes)],
+                                 max_slices=mbh)
+        x = M.xs_to_torch({key: b[key] for key in M.PICTURE_KEYS}, dev)
+        if k == 0:
+            frames, _p, info = M.decode_picture_batch(
+                *x.values(), frames, mb_width=mbw, mb_height=mbh,
+                max_steps=12000, tables=tables)
+    if set(b["pic_type"]) != {2} or info["error"].any():
+        raise AssertionError("space split: expected clean I then P pictures")
+    coeffs, recs, nfinal, err, _it = VS.run_scan(
+        *[x[key] for key in M.PICTURE_KEYS[:7]], mb_width=mbw,
+        mb_height=mbh, max_steps=12000, lut=tables["lut"],
+        zigzag=tables["zigzag"])
+    lane_args = [x[key] for key in ("intra_q", "non_intra_q", "active")]
+    fr_a = {key: v.clone() for key, v in frames.items()}
+    fr_c = {key: v.clone() for key, v in frames.items()}
+    idx = torch.arange(lanes, device=dev)
+    refs = [fr_a[key][idx, 1 - fr_a["parity"].long()] for key in "yuv"]
+    with plain_forms():
+        fr_a, pres_a = M.dense_compose_unfused(
+            coeffs, recs, nfinal, *lane_args, fr_a, mb_width=mbw,
+            mb_height=mbh, transposed=False, ref_planes=refs,
+            scale_dct=tables["scale_dct"])
+    _fr, pres_c = M.dense_compose_flat(
+        coeffs, recs, nfinal, *lane_args, fr_c, mb_width=mbw,
+        mb_height=mbh, scale_dct=tables["scale_dct"])
+    dense = PM.make_space_sharded_dense(smesh, mb_width=mbw, mb_height=mbh)
+    fr_b = {key: v.clone() for key, v in frames.items()}
+    sync_all()
+    reset_counts()
+    t0 = time.perf_counter()
+    fr_b, pres_b = dense(coeffs.reshape(lanes, mbh, mbw * 384),
+                         recs.reshape(lanes, mbh, mbw),
+                         nfinal.reshape(lanes, mbh, mbw * 6), *lane_args,
+                         fr_b)
+    sync_all()
+    space_ms = 1000 * (time.perf_counter() - t0)
+    space_counts = read_counts("space split", ("K3P_predict",
+                                               "K2F_dequant_idct_flat"))
+    fspec = PM.frames_specs()
+    require_equal("space split", [
+        (PM.unshard(smesh, pres_b[key], PM.PRESENTED), pres_a[key])
+        for key in "yuv"] + [
+        (PM.unshard(smesh, fr_b[key], fspec[key]), fr_a[key])
+        for key in ("y", "u", "v", "parity")])
+    rule_diff = sum(int((pres_c[key] != pres_a[key]).sum()) for key in "yuv")
+    log(f"[mesh space] 2 x 2 (streams, space) mesh, {lanes} lanes of a P "
+        f"picture: sharded (K2F, K3P rule B) == the unsharded band form "
+        f"through the plain forms in presented planes and frames; "
+        f"{space_ms:.1f} ms for the call; launches "
+        f"{space_counts}; rule A (the fleet's dense_compose_flat) differs "
+        f"from rule B in {rule_diff} presented pixels of this picture")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--lanes", type=int, default=1024)
@@ -598,7 +973,8 @@ def main() -> int:
     from espflix_tpu_torch.ops.intwrap import wrap32
     from espflix_tpu_torch.runtime import chain as CH
     from espflix_tpu_torch.runtime import session as SE
-    from espflix_tpu_torch.runtime.workload import bench_chunk
+    from espflix_tpu_torch.runtime.workload import (bench_chunk,
+                                                    bench_pictures)
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
@@ -619,6 +995,7 @@ def main() -> int:
     # ---- workload --------------------------------------------------------
     t0 = time.perf_counter()
     xs_np, kw = bench_chunk(args.lanes)
+    bench_ticks, wpl = bench_pictures(args.lanes)
     xs_np_w, kw_w = bench_chunk(args.lanes, win=True)
     xs_np = {k: v[:args.ticks] for k, v in xs_np.items()}
     xs_np_w = {k: v[:args.ticks] for k, v in xs_np_w.items()}
@@ -784,6 +1161,10 @@ def main() -> int:
         f"{sm_clock_hz / 1e6:.0f} MHz)")
 
     kernels += flat_kernels(x, chain, rand_frames, args.reps, mbw, mbh)
+    k_p = int(n_i.argmin())
+    kernels += predict_seq_kernels(
+        {k: v[k_p] for k, v in xs.items()}, bench_ticks[k_i], wpl, chain,
+        rand_frames, args.reps, mbw, mbh, dev)
 
     # ---- 4. the chain ----------------------------------------------------
     def fresh_state():
@@ -878,12 +1259,17 @@ def main() -> int:
         # 7. decode-only serving, then kernel path == plain path
         decode_counts = decode_serving(dev, url, serve_lanes, smi)
         decode_parity(dev, url, serve_lanes)
+        # 8. the mesh
+        mesh_counts = mesh_phase(dev, url, serve_lanes, smi)
 
     for k in kernels:
-        k["launches"] = serve_counts.get(k["name"],
-                                        decode_counts.get(k["name"]))
+        k["launches"] = serve_counts.get(
+            k["name"], decode_counts.get(k["name"],
+                                         mesh_counts.get(k["name"])))
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']}: no launch on its path")
 
-    # ---- 8. results ------------------------------------------------------
+    # ---- 9. results ------------------------------------------------------
     log(f"[total] {time.perf_counter() - t_start:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -34,15 +34,18 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 SIGNATURES = {
     "esp_scan_dense": "p" * 16 + "i" * 8,
     "esp_scan_flat": "p" * 15 + "i" * 7,
+    "esp_scan_seq": "p" * 14 + "i" * 6,
     "esp_idct_T": "p" * 8 + "i" * 2,
     "esp_idct_flat": "p" * 7 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
     "esp_compose_put_flat": "p" * 10 + "i" * 3,
+    "esp_predict": "p" * 4 + "i" * 8,
     "esp_composite_parts": "p" * 12 + "i" * 7,
     "esp_pdm": "p" * 4 + "i" * 2,
 }
 
 _lib = None
+_lib_device: int | None = None          # the library's current device
 build_seconds: float | None = None      # wall time of this process's build
 
 
@@ -119,6 +122,8 @@ def library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
                            for c in sig] + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.esp_set_device.argtypes = [ctypes.c_int]
+        lib.esp_set_device.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -138,20 +143,35 @@ def check(t: torch.Tensor, device: torch.device, dtype: torch.dtype,
 
 def launch(name: str, *args):
     """Call C entry `name` with tensors as device pointers and ints as
-    ints, on the current stream; raise on a launch error."""
+    ints, on the current stream of the tensors' card (the library's
+    current device is switched to it first); raise on a launch error."""
+    global _lib_device
     lib = library()
     sig = SIGNATURES[name]
     if len(args) != len(sig):
         raise TypeError(f"{name}: {len(args)} args, expected {len(sig)}")
     conv = []
+    device = None
     for c, a in zip(sig, args):
         if c == "p":
             if not isinstance(a, torch.Tensor) or not a.is_cuda:
                 raise TypeError(f"{name}: expected a CUDA tensor")
+            if device is None:
+                device = a.device
+            elif a.device != device:
+                raise ValueError(f"{name}: tensors on {device} and "
+                                 f"{a.device}")
             conv.append(a.data_ptr())
         else:
             conv.append(int(a))
-    stream = torch.cuda.current_stream().cuda_stream
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index != _lib_device:
+        rc = lib.esp_set_device(index)
+        if rc != 0:
+            raise RuntimeError(f"esp_set_device({index}): CUDA error {rc}")
+        _lib_device = index
+    stream = torch.cuda.current_stream(index).cuda_stream
     rc = getattr(lib, name)(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -35,6 +35,28 @@
 // rounding, chroma MVs >> 1; STALE keeps cur, INTRA is pin(res), else
 // pin(int16(pred + res)) with pin = clip to 0..248; inactive lanes keep
 // cur.
+//
+// K3P (esp_predict) -- prediction alone, for a band of MB rows.
+// Replaces mocomp_pallas.py _kernel (predict_plane_pallas), the
+// _phase_kernel, _phase2_kernel and _phase4_kernel luma forms and
+// _packed_kernel: every one of them computes predict_plane and nothing
+// else; the mesh's decoders compose afterwards in torch ops, as the JAX
+// package composes in XLA.  One block per (MB row of the band, lane),
+// each thread four adjacent output bytes stored as one 32-bit word (a
+// 4-pixel group never straddles an MB: S is 8 or 16), the taps read
+// through the read-only cache.  What bounds it: memory -- each output
+// byte is written once and its taps are mostly L1 hits of the window
+// the row's MBs share.  The JAX package has two edge rules, and K3P
+// takes the rule as a template parameter:
+//   rule A (CLIP_TAPS = false): the window origin is clamped, clip(xh >>
+//     1, 0, W - S), and taps past the plane read zero -- the five Pallas
+//     kernels and mocomp.predict_plane_mxu (mocomp_pallas.py:55-56,
+//     :1221-1225);
+//   rule B (CLIP_TAPS = true): each tap is clamped into the plane,
+//     clip(x, 0, W - 1) -- mocomp.predict_plane and predict_plane_rows
+//     (mocomp.py:54-57, :208-211), which the 'space' split uses.
+// The band holds MB rows [row0, row0 + mbh_loc) of a full-height
+// reference plane (H rows); the output is the band, [N, mbh_loc*S, W].
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -147,6 +169,69 @@ __global__ void compose_put_kernel(const int16_t* __restrict__ rsrc,
   }
 }
 
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+template <bool CLIP_TAPS>
+__global__ void predict_kernel(const uint8_t* __restrict__ ref,
+                               const int* __restrict__ mvh,
+                               const int* __restrict__ mvv,
+                               uint8_t* __restrict__ out, int H, int W,
+                               int S, int mbw, int mbh_loc, int row0) {
+  const int r = blockIdx.x, n = blockIdx.y;
+  const uint8_t* rp = ref + (size_t)n * H * W;
+  uint8_t* op = out + ((size_t)n * mbh_loc + r) * S * W;
+  const int* mh = mvh + ((size_t)n * mbh_loc + r) * mbw;
+  const int* mv = mvv + ((size_t)n * mbh_loc + r) * mbw;
+  const int quads = S * W / 4;
+  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
+    const int yi = (q * 4) / W, x = (q * 4) % W;
+    const int c = x / S, xi = x % S;
+    const int xh = c * S * 2 + __ldg(mh + c);
+    const int yh = (row0 + r) * S * 2 + __ldg(mv + c);
+    const bool hx = xh & 1, hy = yh & 1;
+    int ya, yb;                       // rows of the a/b and c/d taps
+    bool yb_in;
+    int xa0;                          // column of the first a tap
+    if (CLIP_TAPS) {
+      ya = clampi((yh >> 1) + yi, 0, H - 1);
+      yb = clampi((yh >> 1) + yi + 1, 0, H - 1);
+      yb_in = true;
+      xa0 = (xh >> 1) + xi;
+    } else {
+      ya = clampi(yh >> 1, 0, H - S) + yi;        // < H
+      yb = ya + 1;
+      yb_in = yb < H;
+      xa0 = clampi(xh >> 1, 0, W - S) + xi;       // a taps stay < W
+    }
+    const uint8_t* ra = rp + (size_t)ya * W;
+    const uint8_t* rb = rp + (size_t)(yb_in ? yb : ya) * W;
+    uint32_t word = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int xa = xa0 + k, xb = xa0 + k + 1;
+      bool xb_in = true;
+      if (CLIP_TAPS) {
+        xa = clampi(xa, 0, W - 1);
+        xb = clampi(xb, 0, W - 1);
+      } else {
+        xb_in = xb < W;
+        if (!xb_in) xb = xa;
+      }
+      const int a = __ldg(ra + xa);
+      const int b = xb_in ? __ldg(ra + xb) : 0;
+      const int cc = yb_in ? __ldg(rb + xa) : 0;
+      const int d = (yb_in && xb_in) ? __ldg(rb + xb) : 0;
+      const int pred = !hx ? (!hy ? a : (a + cc + 1) >> 1)
+                           : (!hy ? (a + b + 1) >> 1
+                                  : (a + b + cc + d + 2) >> 2);
+      word |= (uint32_t)pred << (8 * k);
+    }
+    *reinterpret_cast<uint32_t*>(op + (size_t)yi * W + x) = word;
+  }
+}
+
 template <bool FLAT>
 int launch_compose_put(const void* res, const void* recs, const void* active,
                        const void* parity, void* fy, void* fu, void* fv,
@@ -180,4 +265,23 @@ extern "C" int esp_compose_put_flat(const void* res, const void* recs,
                                     int mbh, void* stream) {
   return launch_compose_put<true>(res, recs, active, parity, fy, fu, fv, py,
                                   pu, pv, N, mbw, mbh, stream);
+}
+
+// ref uint8[N, H, W]; mvh / mvv int32[N, mbh_loc, mbw] (half-pel, at the
+// plane's scale); out uint8[N, mbh_loc * S, W].  W % 4 == 0.
+extern "C" int esp_predict(const void* ref, const void* mvh, const void* mvv,
+                           void* out, int N, int H, int W, int S, int mbw,
+                           int mbh_loc, int row0, int clip_taps,
+                           void* stream) {
+  dim3 grid(mbh_loc, N);
+  const int threads = 256;
+  if (clip_taps)
+    predict_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)ref, (const int*)mvh, (const int*)mvv, (uint8_t*)out,
+        H, W, S, mbw, mbh_loc, row0);
+  else
+    predict_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)ref, (const int*)mvh, (const int*)mvv, (uint8_t*)out,
+        H, W, S, mbw, mbh_loc, row0);
+  return (int)cudaGetLastError();
 }

@@ -38,6 +38,12 @@
 // int16 coefficients at 1,024 lanes of 352x192, which bounds it by
 // bytes only if the FSM's latency did not).  Two rows that claim one
 // slot race (the JAX scatter's order is unspecified there too).
+//
+// K1S (esp_scan_seq) -- the device parser's scan: one thread per lane
+// walks the picture's slices in order with the same FSM code and K1F's
+// sink (see scan_seq_kernel).  It has no Pallas counterpart: the JAX
+// package runs this scan in XLA (vlc_scan.run_scan, a while loop over
+// make_scan_step with a [T, N] log and one bulk scatter after it).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,14 +82,16 @@ __device__ __forceinline__ int bits_of(uint32_t win, int start, int n) {
   return (int)(shl32(win, start) >> sh);
 }
 
-// 32 bits from bitpos; words past the row window read 0, and off == 0
-// is special-cased because a shift by 32 is undefined
+// 32 bits from bitpos; words past the window read `oob` (0 for a slice
+// row's window, as the Pallas scan's masked reduce gives; 0xFFFFFFFF for
+// a lane's words, as the XLA scan's gather fills), and off == 0 is
+// special-cased because a shift by 32 is undefined
 __device__ __forceinline__ uint32_t peek(const uint32_t* w, int W,
-                                         int bitpos) {
+                                         int bitpos, uint32_t oob) {
   int wi = bitpos >> 5;
   int off = bitpos & 31;
-  uint32_t w0 = (wi >= 0 && wi < W) ? w[wi] : 0u;
-  uint32_t w1 = (wi + 1 >= 0 && wi + 1 < W) ? w[wi + 1] : 0u;
+  uint32_t w0 = (wi >= 0 && wi < W) ? w[wi] : oob;
+  uint32_t w1 = (wi + 1 >= 0 && wi + 1 < W) ? w[wi + 1] : oob;
   return (w0 << off) | (off == 0 ? 0u : (w1 >> (32 - off)));
 }
 
@@ -103,23 +111,29 @@ __device__ __forceinline__ int floor_log2(int x) {   // x >= 1
 }
 
 // One scan row through the slice FSM (make_scan_step, vlc_scan.py:
-// 279-660) for at most `budget` steps.  Every emission goes to the
+// 279-660) for at most `budget` steps.  The row walks n_sl slices in
+// order: slice k starts at bit starts[k] in MB row srows[k] (a slice
+// row of K1 / K1F has one; a lane of K1S has its picture's, S_cols
+// columns).  At the start code that ends slice k the FSM takes one step
+// to enter slice k + 1 -- or ST_DONE after the last -- exactly as the
+// lockstep step does (vlc_scan.py:412-435).  Every emission goes to the
 // sink: rec(mi, record), nfin(mi, blk, n) at a block's EOB and
 // coef(mi, blk, pos, level).  Returns the steps taken; `error` and
 // `state` are the row's final FSM error flag and state.
 template <class Sink>
-__device__ int scan_row(const uint32_t* w, int Wp, bool live_row,
-                        int start_bit, int row, int mbw, int mb_count,
+__device__ int scan_row(const uint32_t* w, int Wp, uint32_t oob,
+                        bool live_row, const int* starts, const int* srows,
+                        int n_sl, int S_cols, int mbw, int mb_count,
                         bool is_p, int fp, int rs, int budget,
                         const int* __restrict__ lut,
                         const int* __restrict__ zz, Sink& sink, bool& error,
                         int& state) {
   state = live_row ? ST_SLICE_HDR : ST_DONE;
-  int bitpos = live_row ? start_bit : 0;
-  int mb_x = -1, mb_y = live_row ? row : 0;
+  int bitpos = live_row ? starts[0] : 0;
+  int mb_x = -1, mb_y = live_row ? srows[0] : 0;
   int qscale = 1, y_dc = 128, u_dc = 128, v_dc = 128, mv_h = 0, mv_v = 0;
   int mb_type = 0, cbp = 0, blk = 0, n = 0, pending = 0, inc_acc = 0;
-  int first_mb = 1;
+  int first_mb = 1, slice_idx = 0;
   error = false;
 
   auto mb_index = [&](int x, int y) {
@@ -132,7 +146,7 @@ __device__ int scan_row(const uint32_t* w, int Wp, bool live_row,
 
   int t = 0;
   for (; t < budget && state != ST_DONE; ++t) {
-    const uint32_t win = peek(w, Wp, bitpos);
+    const uint32_t win = peek(w, Wp, bitpos, oob);
     const int peek17 = (int)(win >> 15);
     const int mi = mb_index(mb_x, mb_y);
     int consumed = 0;
@@ -151,9 +165,18 @@ __device__ int scan_row(const uint32_t* w, int Wp, bool live_row,
       state = bits_of(win, 8, 1) == 1 ? ST_EXTRA : ST_MBADDR;
     } break;
     case ST_MBADDR: {
-      if ((win >> 9) == 0) {      // next start code: single-slice row ends
-        state = ST_DONE;
+      if ((win >> 9) == 0) {      // a start code: the next slice, or done
+        const int nsl = slice_idx + 1;
+        const int k = nsl < S_cols - 1 ? nsl : S_cols - 1;
+        slice_idx = nsl;
         mb_x = -1;
+        mb_y = srows[k];
+        if (nsl < n_sl) {
+          state = ST_SLICE_HDR;
+          bitpos = starts[k];       // consumed stays 0
+        } else {
+          state = ST_DONE;
+        }
         break;
       }
       Entry e = unpack(lut[L_MBADDR + (peek17 >> 6)]);
@@ -360,10 +383,11 @@ __global__ void scan_dense_kernel(
 
   bool error;
   int state;
-  const int t = scan_row(words + (size_t)r * Wp, Wp, live_row, start_bits[r],
-                         row, mbw, mb_count, pic_type[r] == 2, full_pel[r],
-                         r_size[r], r < long_rows ? budget_long : budget_short,
-                         lut, zz, sink, error, state);
+  const int t = scan_row(words + (size_t)r * Wp, Wp, 0u, live_row,
+                         start_bits + r, rows + r, 1, 1, mbw, mb_count,
+                         pic_type[r] == 2, full_pel[r], r_size[r],
+                         r < long_rows ? budget_long : budget_short, lut, zz,
+                         sink, error, state);
 
   if (sink.selected) {
     int* rec_row = recs + (size_t)lane * mb_count + sink.rb;
@@ -414,12 +438,49 @@ __global__ void scan_flat_kernel(
   sink.nf_lane = nfinal + (size_t)lane * mb_count * 6;
   bool error;
   int state;
-  const int t = scan_row(words + (size_t)r * Wp, Wp, alive[r] != 0,
-                         start_bits[r], rows[r], mbw, mb_count,
+  const int t = scan_row(words + (size_t)r * Wp, Wp, 0u, alive[r] != 0,
+                         start_bits + r, rows + r, 1, 1, mbw, mb_count,
                          pic_type[r] == 2, full_pel[r], r_size[r],
                          r < long_rows ? budget_long : budget_short, lut, zz,
                          sink, error, state);
   if (error || state != ST_DONE) err[lane] = 1;
+  atomicMax(iters, t);
+}
+
+// K1S: one thread per lane walks its picture's slices in order -- the
+// sequential scan vlc_scan.run_scan of the JAX package's device parser
+// (vlc_scan.py:662-729, which XLA runs as one while loop over the lanes'
+// lockstep FSM).  The lane's words are read in place ([N, W], the ones
+// past W read 0xFFFFFFFF as the XLA gather fills), and every emission
+// is set into the lane-minor buffers with K1F's sink.  One symbol
+// budget per picture; a lane errors on an FSM error or when it is not
+// in ST_DONE at the budget.  A thread sets its lane's slots in step
+// order, so a slot emitted twice keeps the later value -- the order the
+// CPU scatter of the JAX scan follows (XLA leaves it unspecified).
+__global__ void scan_seq_kernel(
+    const uint32_t* __restrict__ words, const int* __restrict__ starts,
+    const int* __restrict__ srows, const int* __restrict__ n_slices,
+    const int* __restrict__ pic_type, const int* __restrict__ full_pel,
+    const int* __restrict__ r_size, const int* __restrict__ lut,
+    const int* __restrict__ zz, int16_t* __restrict__ coeffs,
+    int* __restrict__ recs, int* __restrict__ nfinal,
+    uint8_t* __restrict__ err, int* __restrict__ iters, int N, int W, int S,
+    int mbw, int mbh, int budget) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= N) return;
+  const int mb_count = mbw * mbh;
+  FlatSink sink;
+  sink.coef_lane = coeffs + (size_t)lane * mb_count * 384;
+  sink.rec_lane = recs + (size_t)lane * mb_count;
+  sink.nf_lane = nfinal + (size_t)lane * mb_count * 6;
+  bool error;
+  int state;
+  const int t = scan_row(words + (size_t)lane * W, W, 0xFFFFFFFFu,
+                         n_slices[lane] > 0, starts + (size_t)lane * S,
+                         srows + (size_t)lane * S, n_slices[lane], S, mbw,
+                         mb_count, pic_type[lane] == 2, full_pel[lane],
+                         r_size[lane], budget, lut, zz, sink, error, state);
+  err[lane] = (error || state != ST_DONE) ? 1 : 0;
   atomicMax(iters, t);
 }
 
@@ -464,5 +525,24 @@ extern "C" int esp_scan_flat(
       (const int*)zz, (int16_t*)coeffs, (int*)recs, (int*)nfinal,
       (uint8_t*)err, (int*)iters, NS, Wp, mbw, mbh, long_rows, budget_long,
       budget_short);
+  return (int)cudaGetLastError();
+}
+
+// coeffs / recs / nfinal / iters arrive zeroed (the scatter buffer of the
+// JAX scan starts at 0)
+extern "C" int esp_scan_seq(
+    const void* words, const void* slice_starts, const void* slice_rows,
+    const void* n_slices, const void* pic_type, const void* full_pel,
+    const void* r_size, const void* lut, const void* zz, void* coeffs,
+    void* recs, void* nfinal, void* err, void* iters, int N, int W, int S,
+    int mbw, int mbh, int budget, void* stream) {
+  const int threads = 64;
+  const int blocks = (N + threads - 1) / threads;
+  scan_seq_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (const int*)slice_starts,
+      (const int*)slice_rows, (const int*)n_slices, (const int*)pic_type,
+      (const int*)full_pel, (const int*)r_size, (const int*)lut,
+      (const int*)zz, (int16_t*)coeffs, (int*)recs, (int*)nfinal,
+      (uint8_t*)err, (int*)iters, N, W, S, mbw, mbh, budget);
   return (int)cudaGetLastError();
 }

@@ -7,11 +7,14 @@ into PictureData records, and batch assembly.
 Device side: ``dense_compose`` turns the scanner's dense buffers into
 new frames -- dequant+IDCT (ops/idct.py, K2) and one fused prediction +
 compose + put pass (ops/mocomp.py, K3); ``dense_compose_flat`` does the
-same from the lane-minor buffers (K2F, K3F).
+same from the lane-minor buffers (K2F, K3F).  ``dense_compose_unfused``
+is the mesh's form: prediction alone (K3P), then compose and put in
+torch ops, with the 'space' split's band prediction.
 ``decode_picture_batch_sliced`` is the decode-only fleet's per-tick
-decode: the slice scan (K1 or K1F) and one of the two.  Frame state is
-double-buffered [N, 2, H, W] planes plus a per-lane parity, as in the
-JAX package.
+decode on the slice scan (K1 or K1F) and one of the fused two;
+``decode_picture_batch`` the device parser's: the sequential scan (K1S)
+and ``dense_compose_flat``.  Frame state is double-buffered [N, 2, H, W]
+planes plus a per-lane parity, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -281,6 +284,102 @@ def dense_compose_flat(coeffs, recs, nfinal, intra_q, non_intra_q, active,
     parity = frames["parity"]
     frames["parity"] = torch.where(active, 1 - parity, parity)
     return frames, presented
+
+
+def dense_compose_unfused(coeffs, recs, nfinal, intra_q, non_intra_q,
+                          active, frames, *, mb_width: int, mb_height: int,
+                          transposed: bool, ref_planes=None,
+                          row0_mb: int = 0,
+                          scale_dct: torch.Tensor | None = None):
+    """The dense phase with prediction as its own pass: the branches of
+    espflix_tpu.models.mpeg1.dense_compose that the mesh runs.
+
+      * ref_planes None (use_pallas_mocomp=True, mpeg1.py:508-519): each
+        plane predicted from the reference slot (K3P, rule A: three
+        launches, y then u then v);
+      * ref_planes = (y, u, v) full-height reference planes with row0_mb
+        (the 'space' split, mpeg1.py:410-423): frames hold the band of
+        MB rows [row0_mb, row0_mb + mb_height) and each plane is
+        predicted from the full plane (K3P, rule B).
+
+    Residuals come from coeffs_T int16[N, 64, MB*6] (transposed, K2) or
+    lane-minor coeffs int16[N, MB*384] (K2F); compose and put run in
+    torch ops (mpeg1.py:611-665).  Same in-place contract and returns as
+    dense_compose."""
+    if transposed:
+        intra_bl = ((recs & 3) == MB_INTRA).repeat_interleave(6, dim=1)
+        qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
+        res = idct_ops.block_residuals_T(
+            coeffs, intra_bl, qs_bl, intra_q, non_intra_q, nfinal,
+            scale_dct=scale_dct)
+        resid = mocomp_ops.residual_planes(res, mb_width, mb_height)
+    else:
+        res = idct_ops.block_residuals_flat(
+            coeffs, recs, nfinal, intra_q, non_intra_q, scale_dct=scale_dct)
+        resid = mocomp_ops.residual_planes_flat(res, mb_width, mb_height)
+    _kind, mv_h, mv_v = mocomp_ops.mb_fields(recs, mb_width, mb_height)
+    mvs = ((mv_h, mv_v), (mv_h >> 1, mv_v >> 1), (mv_h >> 1, mv_v >> 1))
+    if ref_planes is None:
+        lanes = torch.arange(recs.shape[0], device=recs.device)
+        ref_slot = 1 - frames["parity"].long()
+        preds = [mocomp_ops.predict_plane(frames[k][lanes, ref_slot], mh,
+                                          mv, S)
+                 for k, (mh, mv), S in zip("yuv", mvs, (16, 8, 8))]
+    else:
+        preds = [mocomp_ops.predict_plane_rows(rf, mh, mv, S, row0_mb)
+                 for rf, (mh, mv), S in zip(ref_planes, mvs, (16, 8, 8))]
+    presented = mocomp_ops.compose_put(
+        preds, resid, recs, active, frames, mb_width=mb_width,
+        mb_height=mb_height)
+    parity = frames["parity"]
+    frames["parity"] = torch.where(active, 1 - parity, parity)
+    return frames, presented
+
+
+def decode_picture_impl(words, slice_starts, slice_rows, n_slices,
+                        pic_type, full_pel, r_size, intra_q, non_intra_q,
+                        active, frames, *, mb_width: int, mb_height: int,
+                        max_steps: int, slice_parallel: bool = False,
+                        max_symbols: int = 20000,
+                        tables: dict | None = None):
+    """Decode one picture per lane on the device parser: the port of
+    espflix_tpu.models.mpeg1.decode_picture_impl (mpeg1.py:260-320)
+    with slice_parallel=False -- the sequential scan (ops/vlc_scan.
+    run_scan, K1S on a card) and the lane-minor dense phase
+    (dense_compose_flat, K2F + K3F).
+
+    Arguments are the make_picture_batch arrays as tensors on frames'
+    device (xs_to_torch); tables: decode_tables(device), built when
+    None.  Frames are updated in place.  Returns (frames, presented
+    y/u/v, info) with info error / ok bool[N] and iters int32[N]; a lane
+    errors on an FSM error or when its picture is not scanned within
+    min(max_steps, max_symbols) symbols.  Pure lane-local: the mesh runs
+    it per shard."""
+    if slice_parallel:
+        raise NotImplementedError(
+            "slice_parallel=True (one scan row per slice through run_scan) "
+            "is not ported; the slice scan of decode_picture_batch_sliced "
+            "is the port's slice-parallel decode")
+    if tables is None:
+        tables = decode_tables(frames["y"].device)
+    N = words.shape[0]
+    coeffs, recs, nfinal, err, iters = VS.run_scan(
+        words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+        r_size, mb_width=mb_width, mb_height=mb_height, max_steps=max_steps,
+        max_symbols=max_symbols, lut=tables["lut"], zigzag=tables["zigzag"])
+    frames, presented = dense_compose_flat(
+        coeffs, recs, nfinal, intra_q, non_intra_q, active, frames,
+        mb_width=mb_width, mb_height=mb_height,
+        scale_dct=tables["scale_dct"])
+    info = dict(error=err, ok=active & ~err, iters=iters.expand(N))
+    return frames, presented, info
+
+
+decode_picture_batch = decode_picture_impl
+
+PICTURE_KEYS = ("words", "slice_starts", "slice_rows", "n_slices",
+                "pic_type", "full_pel", "r_size", "intra_q", "non_intra_q",
+                "active")
 
 
 def decode_tables(device) -> dict:

@@ -1,7 +1,10 @@
-"""Half-pel motion compensation fused with compose and the parity put.
+"""Half-pel motion compensation, fused with compose and the parity put.
 
 K3 (predict_compose_put) takes K2's [N, 64, BL] residuals; K3F
 (predict_compose_put_flat) takes K2F's lane-minor [N, MB*6, 64] ones.
+K3P (predict_plane, predict_chroma_pair, predict_plane_rows) predicts
+alone, for the mesh's decoders, which compose in torch ops
+(``compose_put``) as the JAX package composes in XLA.
 
 Prediction follows the JAX package's main-path edge rule
 (espflix_tpu.ops.mocomp.predict_plane_mxu, mocomp.py:124-175, and the
@@ -12,6 +15,13 @@ Compose and put follow models/mpeg1.dense_compose (mpeg1.py:562-664):
 STALE keeps the current picture, INTRA is pin(res), everything else
 pin(int16(pred + res)) with pin = clip to 0..248; each live lane's new
 picture goes into its parity slot, inactive lanes keep theirs.
+
+The JAX package has a second edge rule, and K3P serves both: rule A
+above (every Pallas predict kernel and predict_plane_mxu) and rule B,
+each tap clamped into the plane, clip(x, 0, W - 1) (mocomp.predict_plane
+and predict_plane_rows, mocomp.py:54-57, :208-211), which the 'space'
+split of the mesh uses.  The two differ wherever a window touches the
+right or bottom edge with a half-pel offset or reaches past the plane.
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from espflix_tpu_torch.ops.vlc_scan import MAX_MB_WIDTH, MB_INTRA, \
 
 launches = 0            # K3 launches (counted by the CUDA path only)
 launches_flat = 0       # K3F launches (counted by the CUDA path only)
+launches_predict = 0    # K3P launches (counted by the CUDA path only)
 
 
 def _sext12(x):
@@ -39,22 +50,31 @@ def mb_fields(recs, mb_width: int, mb_height: int):
             _sext12(recs >> 19).reshape(shape))
 
 
-def predict_plane_torch(ref, mv_h, mv_v, mb_size: int):
-    """uint8[N, H, W] prediction of every MB from `ref` (clamped window
-    origin, zero past the plane)."""
+def _predict_band_torch(ref, mv_h, mv_v, mb_size: int, row0_mb: int,
+                        clip_taps: bool):
+    """uint8[N, mbh_loc*S, W] prediction of MB rows [row0_mb, row0_mb +
+    mbh_loc) from the full-height `ref` [N, H, W]: rule B (clip_taps)
+    or rule A."""
     N, H, W = ref.shape
     mbh, mbw = mv_h.shape[1], mv_h.shape[2]
     S = mb_size
     dev = ref.device
-    refp = F.pad(ref.to(torch.int32), (0, 1, 0, 1)).reshape(N, -1)
     xh = (torch.arange(mbw, device=dev) * 2 * S)[None, None, :] + mv_h
-    yh = (torch.arange(mbh, device=dev) * 2 * S)[None, :, None] + mv_v
-    x0 = (xh >> 1).clamp(0, W - S)
-    y0 = (yh >> 1).clamp(0, H - S)
+    yh = ((row0_mb + torch.arange(mbh, device=dev)) * 2 * S)[None, :, None] \
+        + mv_v
     k = torch.arange(S + 1, device=dev)
-    yy = (y0[..., None] + k)[..., :, None]
-    xx = (x0[..., None] + k)[..., None, :]
-    idx = (yy * (W + 1) + xx).reshape(N, -1)
+    if clip_taps:
+        # every tap clamped into the plane
+        refp, Wp = ref.to(torch.int32).reshape(N, -1), W
+        xx = ((xh >> 1)[..., None] + k).clamp(0, W - 1)
+        yy = ((yh >> 1)[..., None] + k).clamp(0, H - 1)
+    else:
+        # clamped window origin, a zero row and column past the plane
+        refp = F.pad(ref.to(torch.int32), (0, 1, 0, 1)).reshape(N, -1)
+        Wp = W + 1
+        xx = (xh >> 1).clamp(0, W - S)[..., None] + k
+        yy = (yh >> 1).clamp(0, H - S)[..., None] + k
+    idx = (yy[..., :, None] * Wp + xx[..., None, :]).reshape(N, -1)
     win = torch.gather(refp, 1, idx).reshape(N, mbh, mbw, S + 1, S + 1)
     a = win[..., :S, :S]
     b = win[..., :S, 1:]
@@ -65,7 +85,107 @@ def predict_plane_torch(ref, mv_h, mv_v, mb_size: int):
     out = torch.where(~hx & ~hy, a, torch.where(
         hx & ~hy, (a + b + 1) >> 1, torch.where(
             ~hx & hy, (a + c + 1) >> 1, (a + b + c + d + 2) >> 2)))
-    return out.permute(0, 1, 3, 2, 4).reshape(N, H, W).to(torch.uint8)
+    return out.permute(0, 1, 3, 2, 4).reshape(N, mbh * S, mbw * S) \
+        .to(torch.uint8)
+
+
+def predict_plane_torch(ref, mv_h, mv_v, mb_size: int):
+    """uint8[N, H, W] prediction of every MB from `ref` (rule A:
+    clamped window origin, zero past the plane)."""
+    return _predict_band_torch(ref, mv_h, mv_v, mb_size, 0, False)
+
+
+def predict_plane_rows_torch(ref_full, mv_h, mv_v, mb_size: int,
+                             row0_mb: int = 0):
+    """Plain form of predict_plane_rows (rule B)."""
+    return _predict_band_torch(ref_full, mv_h, mv_v, mb_size, row0_mb, True)
+
+
+def _predict(ref, mv_h, mv_v, mb_size: int, row0_mb: int, clip_taps: bool):
+    """CPU tensors: the plain form; CUDA tensors: one K3P launch."""
+    global launches_predict
+    if ref.device.type == "cpu":
+        return _predict_band_torch(ref, mv_h, mv_v, mb_size, row0_mb,
+                                   clip_taps)
+    if ref.device.type != "cuda":
+        raise ValueError(f"unsupported device {ref.device}")
+    from espflix_tpu_torch import build
+
+    N, H, W = ref.shape
+    mbh, mbw = mv_h.shape[1], mv_h.shape[2]
+    S = mb_size
+    if S not in (8, 16) or mbw * S != W or not 0 <= row0_mb \
+            or (row0_mb + mbh) * S > H:
+        raise ValueError(f"band of {mbh} MB rows at {row0_mb} (S={S}) "
+                         f"does not fit a {H}x{W} plane")
+    dev = ref.device
+    build.check(ref, dev, torch.uint8)
+    build.check(mv_h, dev, torch.int32, (N, mbh, mbw))
+    build.check(mv_v, dev, torch.int32, (N, mbh, mbw))
+    out = torch.empty((N, mbh * S, W), dtype=torch.uint8, device=dev)
+    build.launch("esp_predict", ref, mv_h, mv_v, out, N, H, W, S, mbw, mbh,
+                 row0_mb, int(clip_taps))
+    launches_predict += 1
+    return out
+
+
+def predict_plane(ref, mv_h, mv_v, mb_size: int):
+    """Predict every MB of a plane: the port of mocomp_pallas.
+    predict_plane_pallas and of every other Pallas predict variant
+    (rule A).  ref uint8[N, H, W]; mv_h / mv_v int32[N, mbh, mbw]
+    half-pel vectors at the plane's scale; mb_size 16 (luma) or 8.
+    Returns uint8[N, H, W].  CPU tensors take the plain form
+    (predict_plane_torch); CUDA tensors launch K3P (csrc/compose.cu)."""
+    return _predict(ref, mv_h, mv_v, mb_size, 0, False)
+
+
+def predict_chroma_pair(ref_u, ref_v, mv_h, mv_v):
+    """Both chroma planes from chroma-scale vectors (the port of
+    predict_chroma_pair_phase / _packed): two K3P launches on a card.
+    Returns (pred_u, pred_v)."""
+    return (predict_plane(ref_u, mv_h, mv_v, 8),
+            predict_plane(ref_v, mv_h, mv_v, 8))
+
+
+def predict_plane_rows(ref_full, mv_h, mv_v, mb_size: int,
+                       row0_mb: int = 0):
+    """Predict a band of MB rows from the FULL reference plane: the port
+    of mocomp.predict_plane_rows (rule B).  ref_full uint8[N, H, W];
+    mv_h / mv_v int32[N, mbh_loc, mbw] for MB rows [row0_mb, row0_mb +
+    mbh_loc).  Returns uint8[N, mbh_loc*S, W].  CPU tensors take the
+    plain form; CUDA tensors launch K3P with rule B."""
+    return _predict(ref_full, mv_h, mv_v, mb_size, row0_mb, True)
+
+
+def compose_put(preds, resid, recs, active, frames, *, mb_width: int,
+                mb_height: int):
+    """Compose + put from predicted and residual planes in torch ops
+    (models/mpeg1.dense_compose's compose and put, mpeg1.py:611-664).
+
+    preds / resid: (y, u, v) uint8 / int16 planes of the frames' height
+    (a band's, under the 'space' split); recs int32[N, mbh*mbw]; frames
+    are updated IN PLACE in each live lane's parity slot.  Returns the
+    presented y/u/v."""
+    N = recs.shape[0]
+    lanes = torch.arange(N, device=recs.device)
+    parity = frames["parity"].long()
+    kind = (recs & 3).reshape(N, mb_height, mb_width)
+    presented = {}
+    for key, pred, res, S in zip("yuv", preds, resid, (16, 8, 8)):
+        planes = frames[key]
+        cur = planes[lanes, parity]
+
+        def up(m):
+            return m.repeat_interleave(S, 1).repeat_interleave(S, 2)
+
+        pinned = torch.where(up(kind == MB_INTRA), res,
+                             pred.to(torch.int16) + res).clamp(0, 248)
+        new = torch.where(up(kind == MB_STALE), cur,
+                          pinned.to(torch.uint8))
+        upd = torch.where(active[:, None, None], new, cur)
+        planes[lanes, parity] = upd
+        presented[key] = upd
+    return presented
 
 
 def residual_planes(res_T, mb_width: int, mb_height: int):
@@ -97,30 +217,18 @@ def residual_planes_flat(res, mb_width: int, mb_height: int):
 
 def _compose_put_planes(resid, recs, active, frames, mb_width: int,
                         mb_height: int):
-    """Prediction + compose + put from raster residual planes."""
+    """Plain prediction + compose + put from raster residual planes."""
     N = recs.shape[0]
     lanes = torch.arange(N, device=recs.device)
     parity = frames["parity"].long()
-    kind, mv_h, mv_v = mb_fields(recs, mb_width, mb_height)
-    presented = {}
-    for key, res, S in zip("yuv", resid, (16, 8, 8)):
-        planes = frames[key]
-        cur = planes[lanes, parity]
-        ref = planes[lanes, 1 - parity]
+    _kind, mv_h, mv_v = mb_fields(recs, mb_width, mb_height)
+    preds = []
+    for key, S in zip("yuv", (16, 8, 8)):
+        ref = frames[key][lanes, 1 - parity]
         mh, mv = (mv_h, mv_v) if S == 16 else (mv_h >> 1, mv_v >> 1)
-        pred = predict_plane_torch(ref, mh, mv, S)
-
-        def up(m):
-            return m.repeat_interleave(S, 1).repeat_interleave(S, 2)
-
-        pinned = torch.where(up(kind == MB_INTRA), res,
-                             pred.to(torch.int16) + res).clamp(0, 248)
-        new = torch.where(up(kind == MB_STALE), cur,
-                          pinned.to(torch.uint8))
-        upd = torch.where(active[:, None, None], new, cur)
-        planes[lanes, parity] = upd
-        presented[key] = upd
-    return presented
+        preds.append(predict_plane_torch(ref, mh, mv, S))
+    return compose_put(preds, resid, recs, active, frames,
+                       mb_width=mb_width, mb_height=mb_height)
 
 
 def predict_compose_put_torch(res_T, recs, active, frames, *,

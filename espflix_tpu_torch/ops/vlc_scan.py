@@ -68,6 +68,7 @@ MAX_MB_WIDTH = 64       # csrc/scan.cu keeps per-MB record sums local
 
 launches = 0            # K1 launches (counted by the CUDA path only)
 launches_flat = 0       # K1F launches (counted by the CUDA path only)
+launches_seq = 0        # K1S launches (counted by the CUDA path only)
 
 
 def _hdr_to_unified(lut: np.ndarray) -> np.ndarray:
@@ -233,11 +234,6 @@ def gather_scan_rows(lane_words, base, lane_of_row, win: int):
 # plain form: lockstep FSM over all rows
 # ---------------------------------------------------------------------------
 
-_STATE_VARS = ("state", "bitpos", "mb_x", "mb_y", "qscale", "y_dc",
-               "u_dc", "v_dc", "mv_h", "mv_v", "mb_type", "cbp", "blk",
-               "n", "pending_skip", "inc_acc", "first_mb", "error")
-
-
 def initial_state(start_bits, rows, alive, pic_type, full_pel, r_size):
     """Per-row FSM state for single-slice scan rows (int32 [R] each;
     `error` bool).  Dead rows (alive == 0) start in ST_DONE."""
@@ -259,16 +255,35 @@ def initial_state(start_bits, rows, alive, pic_type, full_pel, r_size):
     )
 
 
-def _peek_window(words64, bitpos):
+def initial_state_seq(slice_starts, slice_rows, n_slices, pic_type,
+                      full_pel, r_size):
+    """Per-lane FSM state of a whole picture for the sequential scan:
+    the port of espflix_tpu.ops.vlc_scan.initial_state (vlc_scan.py:
+    732-757).  slice_starts / slice_rows int32[N, S]; n_slices,
+    pic_type, full_pel, r_size int32[N].  Lanes with no slice start in
+    ST_DONE."""
+    alive = n_slices > 0
+    z = torch.zeros_like(n_slices, dtype=torch.int32)
+    st = initial_state(slice_starts[:, 0], slice_rows[:, 0],
+                       alive.to(torch.int32), pic_type, full_pel, r_size)
+    st.update(slice_idx=z, slice_starts=slice_starts.to(torch.int32),
+              slice_rows=slice_rows.to(torch.int32),
+              n_slices=n_slices.to(torch.int32))
+    return st
+
+
+def _peek_window(words64, bitpos, past_word: int = 0):
     """32 bits starting at bitpos (MSB-aligned) as int64 in [0, 2^32).
-    words64: int64[R, W] holding unsigned words.  Words past the row
-    window read 0; off == 0 never shifts by 32."""
+    words64: int64[R, W] holding unsigned words.  Words past the window
+    read `past_word` (0 for slice rows, as the Pallas scan's masked
+    reduce gives; 0xFFFFFFFF for a lane's words, as the XLA scan's
+    gather fills); off == 0 never shifts by 32."""
     R, W = words64.shape
     wi = (bitpos >> 5).long()[:, None]
     off = (bitpos & 31).long()
     pair = torch.cat([wi, wi + 1], dim=1)
     got = torch.gather(words64, 1, pair.clamp(0, W - 1))
-    got = torch.where((pair >= 0) & (pair < W), got, 0)
+    got = torch.where((pair >= 0) & (pair < W), got, past_word)
     hi = (got[:, 0] << off) & 0xFFFFFFFF
     lo = torch.where(off == 0, 0, got[:, 1] >> (32 - off))
     return hi | lo
@@ -301,14 +316,17 @@ def _clz_log2(x):
 
 
 def scan_step(st, words64, lut, zz, *, mb_width: int, mb_count: int,
-              live):
+              live, past_word: int = 0):
     """One FSM step for every row where `live`; returns (new state,
-    emission index int32[R] (TRASH when none), emission value)."""
+    emission index int32[R] (TRASH when none), emission value).  A
+    state with slice lists (initial_state_seq) walks them: the start
+    code that ends a slice enters the next one (vlc_scan.py:412-435);
+    a single-slice row (initial_state) ends there."""
     B = LUT_BASES
     MB6 = mb_count * 6
     TRASH = mb_count + MB6 + mb_count * 384
     state = st["state"]
-    win = _peek_window(words64, st["bitpos"])
+    win = _peek_window(words64, st["bitpos"], past_word)
     peek17 = (win >> 15).to(torch.int32)
     peek23_zero = (win >> 9) == 0
     lut_at = lambda base, idx: lut[(base + idx).long()]  # noqa: E731
@@ -336,216 +354,242 @@ def scan_step(st, words64, lut, zz, *, mb_width: int, mb_count: int,
 
     mi = mb_index(st["mb_x"], st["mb_y"])
 
+    # blocks of states no live row is in are skipped (one check a step)
+    present = set(torch.unique(state[live]).tolist())
+    ax, ay = advance(st["mb_x"], st["mb_y"])
+    blk = st["blk"]
+    jump = None
+
     # ---- ST_SLICE_HDR ----------------------------------------------------
-    m = on(ST_SLICE_HDR)
-    put("qscale", m, _bits_of(win, 0, 5))
-    extra = _bits_of(win, 5, 1)
-    for k, v in (("y_dc", 128), ("u_dc", 128), ("v_dc", 128),
-                 ("mv_h", 0), ("mv_v", 0), ("first_mb", 1),
-                 ("inc_acc", 0)):
-        put(k, m, torch.full_like(state, v))
-    consumed = torch.where(m, 6, consumed)
-    put("state", m, torch.where(extra == 1, ST_EXTRA, ST_MBADDR)
-        .to(torch.int32))
+    if ST_SLICE_HDR in present:
+        m = on(ST_SLICE_HDR)
+        put("qscale", m, _bits_of(win, 0, 5))
+        extra = _bits_of(win, 5, 1)
+        for k, v in (("y_dc", 128), ("u_dc", 128), ("v_dc", 128),
+                     ("mv_h", 0), ("mv_v", 0), ("first_mb", 1),
+                     ("inc_acc", 0)):
+            put(k, m, torch.full_like(state, v))
+        consumed = torch.where(m, 6, consumed)
+        put("state", m, torch.where(extra == 1, ST_EXTRA, ST_MBADDR)
+            .to(torch.int32))
 
     # ---- ST_EXTRA --------------------------------------------------------
-    m = on(ST_EXTRA)
-    nxt = _bits_of(win, 8, 1)
-    consumed = torch.where(m, 9, consumed)
-    put("state", m, torch.where(nxt == 1, ST_EXTRA, ST_MBADDR)
-        .to(torch.int32))
+    if ST_EXTRA in present:
+        m = on(ST_EXTRA)
+        nxt = _bits_of(win, 8, 1)
+        consumed = torch.where(m, 9, consumed)
+        put("state", m, torch.where(nxt == 1, ST_EXTRA, ST_MBADDR)
+            .to(torch.int32))
 
-    # ---- ST_MBADDR: single-slice rows end at the next start code --------
-    m = on(ST_MBADDR)
-    done_slice = m & peek23_zero
-    put("state", done_slice, torch.full_like(state, ST_DONE))
-    put("mb_x", done_slice, torch.full_like(state, -1))
-    m_addr = m & ~peek23_zero
-    kind, bits, _run, val = _lut_fields(lut_at(B["MBADDR"], peek17 >> 6))
-    bad = m_addr & (kind == K_INVALID)
-    is_stuff = val == V.MB_STUFFING
-    is_esc = val == V.MB_ESCAPE
-    consumed = torch.where(m_addr, bits, consumed)
-    put("inc_acc", m_addr & is_esc, st["inc_acc"] + 33)
-    got = m_addr & ~is_stuff & ~is_esc & (kind != K_INVALID)
-    inc = torch.where(st["first_mb"] == 1, 1, st["inc_acc"] + val)
-    ax, ay = advance(st["mb_x"], st["mb_y"])
-    one = got & (inc == 1)
-    multi = got & (inc > 1)
-    put("mb_x", one, ax)
-    put("mb_y", one, ay)
-    put("state", one, torch.full_like(state, ST_MBTYPE))
-    for k, v in (("y_dc", 128), ("u_dc", 128), ("v_dc", 128),
-                 ("mv_h", 0), ("mv_v", 0)):
-        put(k, multi, torch.full_like(state, v))
-    put("pending_skip", multi, inc - 1)
-    put("state", multi, torch.full_like(state, ST_SKIP))
-    put("inc_acc", got, torch.zeros_like(state))
-    put("first_mb", got, torch.zeros_like(state))
-    error = error | bad
-    put("state", bad, torch.full_like(state, ST_DONE))
+    # ---- ST_MBADDR: a start code enters the next slice or ends ---------
+    if ST_MBADDR in present:
+        m = on(ST_MBADDR)
+        done_slice = m & peek23_zero
+        put("mb_x", done_slice, torch.full_like(state, -1))
+        if "n_slices" in st:
+            nsl = st["slice_idx"] + 1
+            more = nsl < st["n_slices"]
+            k = nsl.clamp(0, st["slice_starts"].shape[1] - 1).long()[:, None]
+            nsl_start = torch.gather(st["slice_starts"], 1, k)[:, 0]
+            put("slice_idx", done_slice, nsl)
+            put("mb_y", done_slice, torch.gather(st["slice_rows"], 1, k)[:, 0])
+            put("state", done_slice, torch.where(more, ST_SLICE_HDR, ST_DONE)
+                .to(torch.int32))
+            jump = done_slice & more
+        else:
+            put("state", done_slice, torch.full_like(state, ST_DONE))
+        m_addr = m & ~peek23_zero
+        kind, bits, _run, val = _lut_fields(lut_at(B["MBADDR"], peek17 >> 6))
+        bad = m_addr & (kind == K_INVALID)
+        is_stuff = val == V.MB_STUFFING
+        is_esc = val == V.MB_ESCAPE
+        consumed = torch.where(m_addr, bits, consumed)
+        put("inc_acc", m_addr & is_esc, st["inc_acc"] + 33)
+        got = m_addr & ~is_stuff & ~is_esc & (kind != K_INVALID)
+        inc = torch.where(st["first_mb"] == 1, 1, st["inc_acc"] + val)
+        one = got & (inc == 1)
+        multi = got & (inc > 1)
+        put("mb_x", one, ax)
+        put("mb_y", one, ay)
+        put("state", one, torch.full_like(state, ST_MBTYPE))
+        for k, v in (("y_dc", 128), ("u_dc", 128), ("v_dc", 128),
+                     ("mv_h", 0), ("mv_v", 0)):
+            put(k, multi, torch.full_like(state, v))
+        put("pending_skip", multi, inc - 1)
+        put("state", multi, torch.full_like(state, ST_SKIP))
+        put("inc_acc", got, torch.zeros_like(state))
+        put("first_mb", got, torch.zeros_like(state))
+        error = error | bad
+        put("state", bad, torch.full_like(state, ST_DONE))
 
     # ---- ST_SKIP: one skipped-MB record per step, no bits ---------------
-    m = on(ST_SKIP)
-    left = st["pending_skip"] - 1
-    put("pending_skip", m, left)
-    ax2, ay2 = advance(ax, ay)
-    last = m & (left == 0)
-    put("mb_x", m, torch.where(left == 0, ax2, ax))
-    put("mb_y", m, torch.where(left == 0, ay2, ay))
-    put("state", last, torch.full_like(state, ST_MBTYPE))
-    e_idx = torch.where(m, mb_index(ax, ay), e_idx)
-    e_val = torch.where(m, MB_SKIP, e_val)
+    if ST_SKIP in present:
+        m = on(ST_SKIP)
+        left = st["pending_skip"] - 1
+        put("pending_skip", m, left)
+        ax2, ay2 = advance(ax, ay)
+        last = m & (left == 0)
+        put("mb_x", m, torch.where(left == 0, ax2, ax))
+        put("mb_y", m, torch.where(left == 0, ay2, ay))
+        put("state", last, torch.full_like(state, ST_MBTYPE))
+        e_idx = torch.where(m, mb_index(ax, ay), e_idx)
+        e_val = torch.where(m, MB_SKIP, e_val)
 
     # ---- ST_MBTYPE -------------------------------------------------------
-    m = on(ST_MBTYPE)
-    tbase = torch.where(st["pic_type"] == 2, B["MBTYPE_P"], B["MBTYPE_I"])
-    kind, bits, _run, mbt = _lut_fields(lut_at(tbase, peek17 >> 11))
-    ok = m & (kind != K_INVALID)
-    q_flag = (mbt & V.MBT_QUANT) != 0
-    consumed = torch.where(m, bits + torch.where(q_flag, 5, 0), consumed)
-    qs = torch.where(ok & q_flag, _bits_of(win, bits, 5), st["qscale"])
-    put("qscale", m, qs)
-    put("mb_type", m, mbt)
-    intra = (mbt & V.MBT_INTRA) != 0
-    motion = (mbt & V.MBT_MOTION_F) != 0
-    pattern = (mbt & V.MBT_PATTERN) != 0
-    mm = ok & intra
-    for k, v in (("mv_h", 0), ("mv_v", 0), ("cbp", 63), ("blk", 0),
-                 ("n", 0), ("state", ST_DC)):
-        put(k, mm, torch.full_like(state, v))
-    mni = ok & ~intra
-    for k in ("y_dc", "u_dc", "v_dc"):
-        put(k, mni, torch.full_like(state, 128))
-    put("state", mni & motion, torch.full_like(state, ST_MVH))
-    no_mv = mni & ~motion
-    put("mv_h", no_mv, torch.zeros_like(state))
-    put("mv_v", no_mv, torch.zeros_like(state))
-    put("state", no_mv, torch.where(pattern, ST_CBP, ST_MBADDR)
-        .to(torch.int32))
-    emit = mm | no_mv
-    e_idx = torch.where(emit, mi, e_idx)
-    kind_mb = torch.where(intra, MB_INTRA, MB_INTER).to(torch.int32)
-    e_val = torch.where(emit, kind_mb | (qs << 2), e_val)
-    bad = m & (kind == K_INVALID)
-    error = error | bad
-    put("state", bad, torch.full_like(state, ST_DONE))
+    if ST_MBTYPE in present:
+        m = on(ST_MBTYPE)
+        tbase = torch.where(st["pic_type"] == 2, B["MBTYPE_P"], B["MBTYPE_I"])
+        kind, bits, _run, mbt = _lut_fields(lut_at(tbase, peek17 >> 11))
+        ok = m & (kind != K_INVALID)
+        q_flag = (mbt & V.MBT_QUANT) != 0
+        consumed = torch.where(m, bits + torch.where(q_flag, 5, 0), consumed)
+        qs = torch.where(ok & q_flag, _bits_of(win, bits, 5), st["qscale"])
+        put("qscale", m, qs)
+        put("mb_type", m, mbt)
+        intra = (mbt & V.MBT_INTRA) != 0
+        motion = (mbt & V.MBT_MOTION_F) != 0
+        pattern = (mbt & V.MBT_PATTERN) != 0
+        mm = ok & intra
+        for k, v in (("mv_h", 0), ("mv_v", 0), ("cbp", 63), ("blk", 0),
+                     ("n", 0), ("state", ST_DC)):
+            put(k, mm, torch.full_like(state, v))
+        mni = ok & ~intra
+        for k in ("y_dc", "u_dc", "v_dc"):
+            put(k, mni, torch.full_like(state, 128))
+        put("state", mni & motion, torch.full_like(state, ST_MVH))
+        no_mv = mni & ~motion
+        put("mv_h", no_mv, torch.zeros_like(state))
+        put("mv_v", no_mv, torch.zeros_like(state))
+        put("state", no_mv, torch.where(pattern, ST_CBP, ST_MBADDR)
+            .to(torch.int32))
+        emit = mm | no_mv
+        e_idx = torch.where(emit, mi, e_idx)
+        kind_mb = torch.where(intra, MB_INTRA, MB_INTER).to(torch.int32)
+        e_val = torch.where(emit, kind_mb | (qs << 2), e_val)
+        bad = m & (kind == K_INVALID)
+        error = error | bad
+        put("state", bad, torch.full_like(state, ST_DONE))
 
     # ---- ST_MVH / ST_MVV -------------------------------------------------
-    kind, bits, _run, code = _lut_fields(lut_at(B["MOTION"], peek17 >> 6))
-    r_size = st["r_size"]
-    scale = torch.ones_like(r_size) << r_size
-    has_resid = (code != 0) & (scale != 1)
-    resid = _bits_of(win, bits, r_size)
-    mag = (code.abs() - 1) * scale + resid + 1
-    d = torch.where(has_resid, torch.where(code < 0, -mag, mag), code)
-    mot_consumed = bits + torch.where(has_resid, r_size, 0)
-    bad_code = kind == K_INVALID
-    mvals = {}
-    for stv, key in ((ST_MVH, "mv_h"), (ST_MVV, "mv_v")):
-        m = on(stv)
-        mval = st[key] + d
-        mval = torch.where(mval > (scale << 4) - 1, mval - (scale << 5),
-                           mval)
-        mval = torch.where(mval < -(scale << 4), mval + (scale << 5),
-                           mval)
-        mvals[key] = mval
-        consumed = torch.where(m, mot_consumed, consumed)
-        put(key, m & ~bad_code, mval)
-        error = error | (m & bad_code)
-        put("state", m & bad_code, torch.full_like(state, ST_DONE))
-    put("state", on(ST_MVH) & ~bad_code, torch.full_like(state, ST_MVV))
-    mvv_done = on(ST_MVV) & ~bad_code
-    pattern = (st["mb_type"] & V.MBT_PATTERN) != 0
-    put("state", mvv_done, torch.where(pattern, ST_CBP, ST_MBADDR)
-        .to(torch.int32))
-    fp = torch.ones_like(r_size) << st["full_pel"]
-    rec = (MB_INTER | (st["qscale"] << 2)
-           | (((st["mv_h"] * fp) & 0xFFF) << 7)
-           | (((mvals["mv_v"] * fp) & 0xFFF) << 19))
-    e_idx = torch.where(mvv_done, mi, e_idx)
-    e_val = torch.where(mvv_done, rec, e_val)
+    if ST_MVH in present or ST_MVV in present:
+        kind, bits, _run, code = _lut_fields(lut_at(B["MOTION"], peek17 >> 6))
+        r_size = st["r_size"]
+        scale = torch.ones_like(r_size) << r_size
+        has_resid = (code != 0) & (scale != 1)
+        resid = _bits_of(win, bits, r_size)
+        mag = (code.abs() - 1) * scale + resid + 1
+        d = torch.where(has_resid, torch.where(code < 0, -mag, mag), code)
+        mot_consumed = bits + torch.where(has_resid, r_size, 0)
+        bad_code = kind == K_INVALID
+        mvals = {}
+        for stv, key in ((ST_MVH, "mv_h"), (ST_MVV, "mv_v")):
+            m = on(stv)
+            mval = st[key] + d
+            mval = torch.where(mval > (scale << 4) - 1, mval - (scale << 5),
+                               mval)
+            mval = torch.where(mval < -(scale << 4), mval + (scale << 5),
+                               mval)
+            mvals[key] = mval
+            consumed = torch.where(m, mot_consumed, consumed)
+            put(key, m & ~bad_code, mval)
+            error = error | (m & bad_code)
+            put("state", m & bad_code, torch.full_like(state, ST_DONE))
+        put("state", on(ST_MVH) & ~bad_code, torch.full_like(state, ST_MVV))
+        mvv_done = on(ST_MVV) & ~bad_code
+        pattern = (st["mb_type"] & V.MBT_PATTERN) != 0
+        put("state", mvv_done, torch.where(pattern, ST_CBP, ST_MBADDR)
+            .to(torch.int32))
+        fp = torch.ones_like(r_size) << st["full_pel"]
+        rec = (MB_INTER | (st["qscale"] << 2)
+               | (((st["mv_h"] * fp) & 0xFFF) << 7)
+               | (((mvals["mv_v"] * fp) & 0xFFF) << 19))
+        e_idx = torch.where(mvv_done, mi, e_idx)
+        e_val = torch.where(mvv_done, rec, e_val)
 
     # ---- ST_CBP ----------------------------------------------------------
-    m = on(ST_CBP)
-    kind, bits, _run, cbp = _lut_fields(lut_at(B["CBP"], peek17 >> 8))
-    ok = m & (kind != K_INVALID)
-    consumed = torch.where(m, bits, consumed)
-    put("cbp", ok, cbp)
-    put("blk", ok, 5 - _clz_log2(cbp))
-    put("n", ok, torch.zeros_like(state))
-    put("state", ok, torch.full_like(state, ST_COEF))
-    bad = m & (kind == K_INVALID)
-    error = error | bad
-    put("state", bad, torch.full_like(state, ST_DONE))
+    if ST_CBP in present:
+        m = on(ST_CBP)
+        kind, bits, _run, cbp = _lut_fields(lut_at(B["CBP"], peek17 >> 8))
+        ok = m & (kind != K_INVALID)
+        consumed = torch.where(m, bits, consumed)
+        put("cbp", ok, cbp)
+        put("blk", ok, 5 - _clz_log2(cbp))
+        put("n", ok, torch.zeros_like(state))
+        put("state", ok, torch.full_like(state, ST_COEF))
+        bad = m & (kind == K_INVALID)
+        error = error | bad
+        put("state", bad, torch.full_like(state, ST_DONE))
 
     # ---- ST_DC -----------------------------------------------------------
-    m = on(ST_DC)
-    blk = st["blk"]
-    dbase = torch.where(blk < 4, B["DC_LUM"], B["DC_CHROM"])
-    kind, bits, _run, dc_size = _lut_fields(lut_at(dbase, peek17 >> 9))
-    delta = _bits_of(win, bits, dc_size)
-    one_i = torch.ones_like(dc_size)
-    top = (delta & (one_i << (dc_size - 1).clamp(min=0))) != 0
-    neg = (-one_i << dc_size) | (delta + 1)
-    pred = torch.where(blk < 4, st["y_dc"],
-                       torch.where(blk == 4, st["u_dc"], st["v_dc"]))
-    dc = torch.where(dc_size == 0, pred,
-                     pred + torch.where(top, delta, neg))
-    consumed = torch.where(m, bits + dc_size, consumed)
-    upd = m & (kind != K_INVALID)
-    put("y_dc", upd & (blk < 4), dc)
-    put("u_dc", upd & (blk == 4), dc)
-    put("v_dc", upd & (blk == 5), dc)
-    e_idx = torch.where(upd, mb_count + MB6 + mi * 384 + blk * 64, e_idx)
-    e_val = torch.where(upd, dc, e_val)
-    put("n", upd, torch.ones_like(state))
-    put("state", upd, torch.full_like(state, ST_COEF))
-    bad = m & (kind == K_INVALID)
-    error = error | bad
-    put("state", bad, torch.full_like(state, ST_DONE))
+    if ST_DC in present:
+        m = on(ST_DC)
+        dbase = torch.where(blk < 4, B["DC_LUM"], B["DC_CHROM"])
+        kind, bits, _run, dc_size = _lut_fields(lut_at(dbase, peek17 >> 9))
+        delta = _bits_of(win, bits, dc_size)
+        one_i = torch.ones_like(dc_size)
+        top = (delta & (one_i << (dc_size - 1).clamp(min=0))) != 0
+        neg = (-one_i << dc_size) | (delta + 1)
+        pred = torch.where(blk < 4, st["y_dc"],
+                           torch.where(blk == 4, st["u_dc"], st["v_dc"]))
+        dc = torch.where(dc_size == 0, pred,
+                         pred + torch.where(top, delta, neg))
+        consumed = torch.where(m, bits + dc_size, consumed)
+        upd = m & (kind != K_INVALID)
+        put("y_dc", upd & (blk < 4), dc)
+        put("u_dc", upd & (blk == 4), dc)
+        put("v_dc", upd & (blk == 5), dc)
+        e_idx = torch.where(upd, mb_count + MB6 + mi * 384 + blk * 64, e_idx)
+        e_val = torch.where(upd, dc, e_val)
+        put("n", upd, torch.ones_like(state))
+        put("state", upd, torch.full_like(state, ST_COEF))
+        bad = m & (kind == K_INVALID)
+        error = error | bad
+        put("state", bad, torch.full_like(state, ST_DONE))
 
     # ---- ST_COEF ---------------------------------------------------------
-    m = on(ST_COEF)
-    n = st["n"]
-    cbase = torch.where(n == 0, B["DCT_FIRST"], B["DCT_NEXT"])
-    kind, bits, run, lev = _lut_fields(lut_at(cbase, peek17))
-    bad = m & (kind == K_INVALID)
-    is_eob = kind == K_EOB
-    is_esc = kind == K_ESCAPE
-    v8 = _bits_of(win, bits, 8)
-    v16lo = _bits_of(win, bits + 8, 8)
-    esc_level = torch.where(v8 == 0, v16lo, torch.where(
-        v8 == 128, v16lo - 256, torch.where(v8 > 128, v8 - 256, v8)))
-    esc_extra = torch.where((v8 == 0) | (v8 == 128), 16, 8)
-    level = torch.where(is_esc, esc_level, lev)
-    nn = n + run
-    good = m & (kind != K_INVALID)
-    oob = good & ~is_eob & (nn >= 64)
-    zz_pos = zz[nn.clamp(0, 63).long()]
-    consumed = torch.where(m, bits + torch.where(is_esc, esc_extra, 0),
-                           consumed)
-    emit = good & ~is_eob & ~oob
-    e_idx = torch.where(emit, mb_count + MB6 + mi * 384 + blk * 64
-                        + zz_pos, e_idx)
-    e_val = torch.where(emit, level, e_val)
-    put("n", emit, nn + 1)
-    meob = good & is_eob
-    e_idx = torch.where(meob, mb_count + mi * 6 + blk, e_idx)
-    e_val = torch.where(meob, n, e_val)
-    rem = st["cbp"] & ((torch.full_like(blk, 0x20) >> blk) - 1)
-    nb = torch.where(rem > 0, 5 - _clz_log2(rem), 6)
-    more = meob & (nb < 6)
-    intra = (st["mb_type"] & V.MBT_INTRA) != 0
-    put("blk", more, nb)
-    put("n", more, torch.zeros_like(state))
-    put("state", more, torch.where(intra, ST_DC, ST_COEF)
-        .to(torch.int32))
-    put("state", meob & (nb >= 6), torch.full_like(state, ST_MBADDR))
-    error = error | bad | oob
-    put("state", bad | oob, torch.full_like(state, ST_DONE))
+    if ST_COEF in present:
+        m = on(ST_COEF)
+        n = st["n"]
+        cbase = torch.where(n == 0, B["DCT_FIRST"], B["DCT_NEXT"])
+        kind, bits, run, lev = _lut_fields(lut_at(cbase, peek17))
+        bad = m & (kind == K_INVALID)
+        is_eob = kind == K_EOB
+        is_esc = kind == K_ESCAPE
+        v8 = _bits_of(win, bits, 8)
+        v16lo = _bits_of(win, bits + 8, 8)
+        esc_level = torch.where(v8 == 0, v16lo, torch.where(
+            v8 == 128, v16lo - 256, torch.where(v8 > 128, v8 - 256, v8)))
+        esc_extra = torch.where((v8 == 0) | (v8 == 128), 16, 8)
+        level = torch.where(is_esc, esc_level, lev)
+        nn = n + run
+        good = m & (kind != K_INVALID)
+        oob = good & ~is_eob & (nn >= 64)
+        zz_pos = zz[nn.clamp(0, 63).long()]
+        consumed = torch.where(m, bits + torch.where(is_esc, esc_extra, 0),
+                               consumed)
+        emit = good & ~is_eob & ~oob
+        e_idx = torch.where(emit, mb_count + MB6 + mi * 384 + blk * 64
+                            + zz_pos, e_idx)
+        e_val = torch.where(emit, level, e_val)
+        put("n", emit, nn + 1)
+        meob = good & is_eob
+        e_idx = torch.where(meob, mb_count + mi * 6 + blk, e_idx)
+        e_val = torch.where(meob, n, e_val)
+        rem = st["cbp"] & ((torch.full_like(blk, 0x20) >> blk) - 1)
+        nb = torch.where(rem > 0, 5 - _clz_log2(rem), 6)
+        more = meob & (nb < 6)
+        intra = (st["mb_type"] & V.MBT_INTRA) != 0
+        put("blk", more, nb)
+        put("n", more, torch.zeros_like(state))
+        put("state", more, torch.where(intra, ST_DC, ST_COEF)
+            .to(torch.int32))
+        put("state", meob & (nb >= 6), torch.full_like(state, ST_MBADDR))
+        error = error | bad | oob
+        put("state", bad | oob, torch.full_like(state, ST_DONE))
 
     new["bitpos"] = st["bitpos"] + torch.where(live, consumed, 0)
+    if jump is not None:
+        new["bitpos"] = torch.where(jump, nsl_start, new["bitpos"])
     new = {k: v.to(torch.int32) for k, v in new.items()}
     new["error"] = error
     return new, e_idx.to(torch.int32), e_val.to(torch.int32)
@@ -786,4 +830,108 @@ def run_scan_bucketed(
         iters, NS, Wp, mb_width, mb_height, long_rows,
         _budget(steps_long, chunk), _budget(steps_short, chunk))
     launches_flat += 1
+    return coeffs, recs, nfinal, err, iters
+
+
+# ---------------------------------------------------------------------------
+# sequential scan (K1S): the device parser's run_scan
+# ---------------------------------------------------------------------------
+
+PAST_WORD = 0xFFFFFFFF   # the XLA gather's fill for words past a lane's
+
+
+def _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
+               full_pel, r_size):
+    N, S = slice_starts.shape
+    assert words.shape[0] == N and slice_rows.shape == (N, S)
+    for t in (n_slices, pic_type, full_pel, r_size):
+        assert t.shape == (N,), t.shape
+
+
+def run_scan_torch(words, slice_starts, slice_rows, n_slices, pic_type,
+                   full_pel, r_size, *, mb_width: int, mb_height: int,
+                   max_steps: int, max_symbols: int = 20000, lut, zigzag):
+    """Plain form of K1S: the lockstep FSM over the lanes, every lane
+    walking its slices, each step's emissions set into one [N, C1]
+    buffer laid out [recs | nfinal | coeffs | trash] as the JAX scan's
+    bulk scatter.  Same returns as run_scan."""
+    _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
+               full_pel, r_size)
+    N = words.shape[0]
+    dev = words.device
+    mb_count = mb_width * mb_height
+    MB6 = mb_count * 6
+    C1 = mb_count * (1 + 6 + 384) + 1
+    words64 = words.long() & 0xFFFFFFFF
+    st = initial_state_seq(slice_starts, slice_rows, n_slices, pic_type,
+                           full_pel, r_size)
+    steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    buf = torch.zeros(N * C1, dtype=torch.int32, device=dev)
+    base = torch.arange(N, device=dev) * C1
+    for _ in range(min(max_steps, max_symbols)):
+        live = st["state"] != ST_DONE
+        if not bool(live.any()):
+            break
+        steps += live.to(torch.int32)
+        st, i1, v1 = scan_step(st, words64, lut, zigzag,
+                               mb_width=mb_width, mb_count=mb_count,
+                               live=live, past_word=PAST_WORD)
+        buf[base + i1.long()] = v1
+    buf = buf.reshape(N, C1)
+    err = st["error"] | (st["state"] != ST_DONE)
+    return (wrap16(buf[:, mb_count + MB6:C1 - 1]),
+            buf[:, :mb_count].contiguous(),
+            buf[:, mb_count:mb_count + MB6].contiguous(), err,
+            steps.max().to(torch.int32))
+
+
+def run_scan(words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+             r_size, *, mb_width: int, mb_height: int, max_steps: int,
+             max_symbols: int = 20000, lut, zigzag):
+    """One picture per lane through the slice FSM, slice after slice:
+    the port of espflix_tpu.ops.vlc_scan.run_scan with initial_state
+    (vlc_scan.py:662-757), the scan of the JAX package's device parser.
+
+    words int32[N, W] (a lane's big-endian words as int32 bit patterns;
+    words past W read 0xFFFFFFFF); slice_starts / slice_rows int32[N, S];
+    n_slices / pic_type / full_pel / r_size int32[N]; lut / zigzag as
+    run_scan_bucketed_dense.  The symbol budget is min(max_steps,
+    max_symbols) steps per picture.
+
+    Returns (coeffs int16[N, MB*384], recs int32[N, MB], nfinal
+    int32[N, MB*6], err bool[N], iters int32 scalar): err is the JAX
+    decode's `st["error"] | (st["state"] != ST_DONE)` (an FSM error, or
+    a lane still scanning at the budget), iters the most steps any lane
+    took.  CPU tensors take the plain form; CUDA tensors launch K1S
+    (csrc/scan.cu)."""
+    global launches_seq
+    args = (words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+            r_size)
+    kw = dict(mb_width=mb_width, mb_height=mb_height, max_steps=max_steps,
+              max_symbols=max_symbols, lut=lut, zigzag=zigzag)
+    if words.device.type == "cpu":
+        return run_scan_torch(*args, **kw)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    from espflix_tpu_torch import build
+
+    _check_seq(*args)
+    _, bases, _ = _mega_lut_np()
+    if bases != LUT_BASES:
+        raise RuntimeError(f"LUT layout changed: {bases}")
+    dev = words.device
+    for t in args + (lut, zigzag):
+        build.check(t, dev, torch.int32)
+    N, W = words.shape
+    S = slice_starts.shape[1]
+    mb_count = mb_width * mb_height
+    coeffs = torch.zeros((N, mb_count * 384), dtype=torch.int16, device=dev)
+    recs = torch.zeros((N, mb_count), dtype=torch.int32, device=dev)
+    nfinal = torch.zeros((N, mb_count * 6), dtype=torch.int32, device=dev)
+    err = torch.zeros(N, dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    build.launch("esp_scan_seq", *args, lut, zigzag, coeffs, recs, nfinal,
+                 err, iters, N, W, S, mb_width, mb_height,
+                 min(max_steps, max_symbols))
+    launches_seq += 1
     return coeffs, recs, nfinal, err, iters

@@ -17,7 +17,8 @@ are on the CPU.  ``FullChain`` holds the constant tables as buffers
 ``run_full_chunk`` is the JAX entry point's signature over a new one.
 
 Frames are updated in place (see models/mpeg1.dense_compose); the
-presented planes of each tick are new tensors.
+presented planes of each tick are new tensors.  ``make_sharded_full_chunk``
+runs the tick body per shard of a 'streams' mesh (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -122,12 +123,16 @@ class FullChain(nn.Module):
              *, mb_width: int, mb_height: int, n_lanes: int,
              long_rows: int, steps_long: int, steps_short: int, tap: int,
              return_planes: bool, win: int, chunk: int, channels: int,
-             slide=None, timer=None):
+             slide=None, timer=None, lane0: int | None = None):
         """One tick: returns (sbc_state, ds_state, out); frames are
         updated in place.  slide: (y, u, v) outgoing-frame planes when
         the tick is scrolled (x["hscroll"] per lane), else None.
         timer(stage) is a context manager factory used to time stages
-        (chip_smoke.py), or None."""
+        (chip_smoke.py), or None.  lane0: this shard's first global
+        lane under a mesh -- tap_idx is then global and the taps come
+        back masked (int32 fields, zero for tapped lanes of other
+        shards) for the caller to sum over the shards (chain.py:160-178);
+        None: tap_idx indexes these lanes."""
         from contextlib import nullcontext
         stage = timer or (lambda _name: nullcontext())
         F = self.n_aud_frames
@@ -182,10 +187,20 @@ class FullChain(nn.Module):
             out["ysum"] = wrap32(p["y"].sum(dim=(1, 2), dtype=torch.int64))
         if tap:
             ti = tap_idx[:tap].long()
+            if lane0 is not None:
+                ti = ti - lane0
+                inside = (ti >= 0) & (ti < n_lanes)
+                ti = ti.clamp(0, n_lanes - 1)
             canvas = CO.assemble_canvas_packed(
                 f_act[ti], f_strip[ti], pal=self.pal, tmpl=self.templates)
             out["tap_fields"] = CO.unpack_fields(canvas)
             out["tap_pdm"] = pdm[ti]
+            if lane0 is not None:
+                out["tap_fields"] = torch.where(
+                    inside[:, None, None, None],
+                    out["tap_fields"].to(torch.int32), 0)
+                out["tap_pdm"] = torch.where(inside[:, None],
+                                             out["tap_pdm"], 0)
         return sbc_state, ds_state, out
 
     def forward(self, xs: dict, frames: dict, sbc_state, ds_state,
@@ -249,7 +264,87 @@ def run_full_chunk(xs, frames, sbc_state, ds_state, tap_idx, slide,
                  scrolled=scrolled, slide=slide, timer=timer)
 
 
-def make_sharded_full_chunk(*args, **kwargs):
-    """The mesh form (espflix_tpu.runtime.chain.make_sharded_full_chunk,
-    psum_axis taps) is not ported yet; see ROADMAP.md."""
-    raise NotImplementedError("the sharded chain is not ported yet")
+_CHAINS: dict = {}
+
+
+def _chain_on(device, pal: bool, n_aud_frames: int) -> FullChain:
+    key = (torch.device(device), pal, n_aud_frames)
+    if key not in _CHAINS:
+        _CHAINS[key] = FullChain(pal=pal, n_aud_frames=n_aud_frames,
+                                 device=device)
+    return _CHAINS[key]
+
+
+def make_sharded_full_chunk(mesh, *, mb_width: int, mb_height: int,
+                            n_lanes: int, long_rows: int,
+                            steps_long: int, steps_short: int,
+                            n_aud_frames: int, channels: int,
+                            pal: bool, scrolled: bool, tap: int,
+                            return_planes: bool = False,
+                            win: int = 0, chunk: int = 128):
+    """The full chain under a 'streams' mesh (chain.py:223-299):
+    fn(xs, frames, sbc_state, ds_state, tap_idx, slide) -> (frames,
+    sbc_state, ds_state, outs), run_full_chunk's contract per shard.
+
+    n_lanes is the GLOBAL lane count; long_rows and the budgets are
+    per shard.  xs leaves are [K, lanes-or-rows, ...] cut along axis
+    1 (rows pre-packed per shard by scan_dense.
+    pack_slice_rows_sharded); frames, SBC history, PDM state and,
+    when scrolled, slide are cut along axis 0 (parallel/mesh.
+    Sharded; tensors are sharded on entry).  Each tick runs
+    FullChain.tick on every shard (K1-K5 on a card) before the next
+    tick starts; tap_idx holds GLOBAL lanes, and each tick's taps are
+    the sum over the shards of their masked taps, on the mesh's first
+    device (the JAX chain's masked psum).  outs: err, audio_err,
+    field_sum, pdm_sum and y/u/v (or ysum) Sharded along axis 1;
+    tap_fields / tap_pdm one tensor each."""
+    from espflix_tpu_torch.parallel import mesh as PM
+    n_sh = mesh.shape["streams"]
+    assert mesh.axis_names == ("streams",) and n_lanes % n_sh == 0
+    n_loc = n_lanes // n_sh
+    devs = mesh.device_list()
+    dev0 = mesh.first
+    kw = dict(mb_width=mb_width, mb_height=mb_height, n_lanes=n_loc,
+              long_rows=long_rows, steps_long=steps_long,
+              steps_short=steps_short, tap=tap,
+              return_planes=return_planes, win=win, chunk=chunk,
+              channels=channels)
+
+    def fn(xs, frames, sbc_state, ds_state, tap_idx, slide):
+        xs = PM.shard_axis1_tree(mesh, xs)
+        frames = PM.shard_lane_tree(mesh, frames)
+        sbc = list(PM.shard_lane_tree(mesh, sbc_state))
+        ds = list(PM.shard_lane_tree(mesh, ds_state))
+        slides = PM.shard_lane_tree(mesh, slide) if scrolled else None
+        frs = [PM.local(frames, i) for i in range(len(devs))]
+        taps = [tap_idx.to(d) for d in devs]
+        K = next(iter(xs.values()))[0].shape[0]
+        per_shard = [[] for _ in devs]
+        tap_out = []
+        for k in range(K):
+            tick_taps = []
+            for i, dev in enumerate(devs):
+                x = {key: v[i][k] for key, v in xs.items()}
+                sbc[i], ds[i], out = _chain_on(
+                    dev, pal, n_aud_frames).tick(
+                    x, frs[i], sbc[i], ds[i], taps[i], **kw,
+                    slide=PM.local(slides, i) if scrolled else None,
+                    lane0=i * n_loc)
+                if tap:
+                    tick_taps.append((out.pop("tap_fields"),
+                                      out.pop("tap_pdm")))
+                per_shard[i].append(out)
+            if tap:
+                tap_out.append((
+                    sum(f.to(dev0) for f, _ in tick_taps)
+                    .to(torch.uint8),
+                    sum(p.to(dev0) for _, p in tick_taps)))
+        outs = PM.stack_shards([
+            {key: torch.stack([o[key] for o in shard_outs])
+             for key in shard_outs[0]} for shard_outs in per_shard])
+        if tap:
+            outs["tap_fields"] = torch.stack([f for f, _ in tap_out])
+            outs["tap_pdm"] = torch.stack([p for _, p in tap_out])
+        return (PM.stack_shards(frs), PM.Sharded(sbc), PM.Sharded(ds),
+                outs)
+    return fn

@@ -1,30 +1,41 @@
 """Fleet scheduler: N playback sessions through batched device decode.
 
-The port of espflix_tpu.runtime.scheduler on one device, parser
-"pallas" (the slice scan, the port's only parser): each lane is one
+The port of espflix_tpu.runtime.scheduler: each lane is one
 PlayerSession (control plane + bounded network pump); every tick the
 fleet gathers at most one complete picture and one tick of SBC frames
 per lane.  Starved or idle lanes are masked; a corrupt stream only
-parks its own lane.  Two serving modes, as in the JAX package:
+parks its own lane.  Two parsers: "pallas" (the port's default), the
+slice scan of decode_picture_batch_sliced, and "device" (the JAX
+Fleet's default), the sequential scan of decode_picture_batch.  Two
+serving modes, as in the JAX package:
 
   * decode-only (output=False, the default; scheduler.py:270-958):
     ``tick_submit`` / ``tick_collect`` (``tick``, ``run_pipelined``)
-    decode one tick through models/mpeg1.decode_picture_batch_sliced --
-    K1 -> K2 -> K3, or K1F -> K2F -> K3F for small fleets -- and the
-    SBC audio per (frame size, channels) group; ``run_chunk`` decodes K
-    ticks through K1F -> K2F -> K3F with one host sync per chunk.
-    TickResult planes are numpy (fetch_frames=True) or device tensors;
+    decode one tick -- on "pallas" K1 -> K2 -> K3, or K1F -> K2F -> K3F
+    for small fleets; on "device" K1S -> K2F -> K3F -- and the SBC audio
+    per (frame size, channels) group; ``run_chunk`` decodes K ticks
+    (K1F -> K2F -> K3F, or K1S -> K2F -> K3F) with one host sync per
+    chunk.  TickResult planes are numpy (fetch_frames=True) or device
+    tensors;
   * full path (output=True; scheduler.py:1060-1379): ``run_chunk_full``
     runs K ticks of decode, both composite fields, SBC and PDM
     (runtime/chain.FullChain, kernels K1-K5) in one call; presented
     planes stay on the device, only checksums, error flags and the
     tapped lanes' signal reach the host.
 
+Under a 'streams' mesh (parallel/mesh.py) the lanes shard in contiguous
+groups: "pallas" decodes through make_sharded_pallas_decoder (K1, K2,
+K3P and a torch compose per shard, tick and run_chunk), "device" through
+make_sharded_decoder (tick; run_chunk runs tick by tick, as in JAX), and
+run_chunk_full through chain.make_sharded_full_chunk.  Frames (and, from
+the first run_chunk_full, SBC and PDM state) are Sharded; decode-only
+audio stays on the mesh's first device; TickResult planes are joined on
+the first device, so callers see the single-device types.
+
 Frames and SBC history stay on the fleet's device (CUDA by default).
 Not ported yet (each raises NotImplementedError; ROADMAP.md): the
-"device" and "hybrid" parsers, a mesh, run_chunk_full_pooled with a
-HostPool, and the native session feed with its batched and packed
-pops.
+"hybrid" parser, run_chunk_full_pooled with a HostPool, and the native
+session feed with its batched and packed pops.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from espflix_tpu_torch.models import mpeg1 as M
 from espflix_tpu_torch.models import sbc as dsbc
 from espflix_tpu_torch.ops import scan_dense as SD
 from espflix_tpu_torch.ops import vlc_scan as VS
+from espflix_tpu_torch.parallel import mesh as PM
 from espflix_tpu_torch.runtime import chain as CH
 from espflix_tpu_torch.runtime.events import Ev, EventLog, Timers
 from espflix_tpu_torch.runtime.output import OutputStage
@@ -109,6 +121,8 @@ def bucket_policy(need: int, ns_rows: int, *, steps_long: int,
 
 
 _PUMP_STATES = (State.PLAYING, State.FAST_FORWARD, State.REWIND)
+# the mesh slice scan's row inputs, in the decoder's argument order
+ROW_KEYS = M.SCAN_KEYS + ("perm",)
 
 
 class Fleet:
@@ -118,23 +132,24 @@ class Fleet:
                  tick_rate: float = 30.0,
                  parser: str = "pallas", output: bool = False,
                  pal: bool = False, device="cuda"):
-        """The fleet on one `device` (the JAX Fleet with
-        parser='pallas' and no mesh).  output=False is the decode-only
-        fleet (tick, run_pipelined, run_chunk); output=True adds the
-        OutputStage and the full chain (run_chunk_full).  Raises
-        NotImplementedError for the 'device' and 'hybrid' parsers and
-        for a mesh."""
-        if parser != "pallas":
+        """The fleet on one `device`, or on `mesh` (parallel/mesh.Mesh,
+        a 'streams' mesh; its first device then hosts the fleet's
+        single-device state).  parser: 'pallas' (the slice scan) or
+        'device' (the sequential scan); 'hybrid' raises
+        NotImplementedError.  output=False is the decode-only fleet
+        (tick, run_pipelined, run_chunk); output=True adds the
+        OutputStage and the full chain (run_chunk_full, 'pallas'
+        only)."""
+        if parser not in ("pallas", "device"):
             raise NotImplementedError(
-                f"parser {parser!r}: the port runs the slice scan (K1, "
-                "K1F) only")
-        if mesh is not None:
-            raise NotImplementedError("the sharded fleet is not ported")
+                f"parser {parser!r}: the port runs the 'pallas' slice scan "
+                "(K1, K1F) and the 'device' sequential scan (K1S)")
         self.n = n_lanes
         self.width, self.height = width, height
         self.mb_w, self.mb_h = (width + 15) >> 4, (height + 15) >> 4
         self.words_per_lane = words_per_lane
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.first
         # real-time audio provisioning: at tick_rate display ticks/s
         # each lane drains 48000 / 128 / tick_rate SBC frames per tick
         # (13 at 30 fps) or its ring backs up (video.cpp:990-1004)
@@ -163,6 +178,75 @@ class Fleet:
         # device; ESPFLIX_DEVICE_WINDOWS=0 restores host-built windows
         self._dev_win = os.environ.get(
             "ESPFLIX_DEVICE_WINDOWS", "1") != "0"
+        # the device parser's symbol budget (scheduler.py:164-181)
+        max_steps = min(words_per_lane * 32, 12000)
+        if mesh is not None:
+            self._decode = PM.make_sharded_decoder(
+                mesh, mb_width=self.mb_w, mb_height=self.mb_h,
+                max_steps=max_steps)
+            self.frames = PM.shard_lane_tree(mesh, self.frames)
+        else:
+            def decode(*args):
+                return M.decode_picture_batch(
+                    *args, mb_width=self.mb_w, mb_height=self.mb_h,
+                    max_steps=max_steps, tables=self.tables)
+            self._decode = decode
+
+    # -- sharded slice-scan parser (the mesh's 'pallas' path) ------------
+    def _bucket_params(self, pics, lanes_per_shard: int | None = None):
+        """(long_rows, steps_long, steps_short) for this tick's picture
+        mix: the long bucket absorbs every I picture's rows, per shard
+        when sharded (scheduler.py:196-210)."""
+        n_sh = 1 if lanes_per_shard is None else \
+            self.n // lanes_per_shard
+        ln = lanes_per_shard or self.n
+        need = 8
+        for s in range(n_sh):
+            n_i = sum(1 for p in pics[s * ln:(s + 1) * ln]
+                      if p is not None and p.pic_type == 1)
+            need = max(need, n_i * self.mb_h)
+        return bucket_policy(need, ln * self.mb_h, steps_long=1024,
+                             steps_short=384, floor=1)
+
+    def _get_sharded_pallas(self, long_rows, steps_long, steps_short,
+                            chunked: bool):
+        """The mesh's slice-scan decoder for these budgets, per tick or
+        K ticks at a time (scheduler.py:212-246)."""
+        dec = PM.make_sharded_pallas_decoder(
+            self.mesh, mb_width=self.mb_w, mb_height=self.mb_h,
+            long_rows=long_rows, steps_long=steps_long,
+            steps_short=steps_short)
+        if not chunked:
+            return dec
+
+        def chunk_fn(stacked, frames):
+            # stacked: [K, rows-or-lanes, ...] leaves Sharded on axis 1
+            K = stacked["words"][0].shape[0]
+            pres, errs = [], []
+            for k in range(K):
+                xs = {name: PM.Sharded(part[k] for part in v)
+                      for name, v in stacked.items()}
+                frames, p, info = dec(*(xs[name] for name in ROW_KEYS),
+                                      xs["intra_q"], xs["non_intra_q"],
+                                      xs["active"], frames)
+                pres.append(p)
+                errs.append(info["error"])
+            n_sh = len(errs[0])
+            pres = {name: PM.Sharded(
+                torch.stack([p[name][i] for p in pres])
+                for i in range(n_sh)) for name in "yuv"}
+            errs = PM.Sharded(torch.stack([e[i] for e in errs])
+                              for i in range(n_sh))
+            return frames, pres, errs
+        return chunk_fn
+
+    def _pack_sharded(self, b):
+        """(row arrays numpy dict incl. perm, dup) for the mesh's slice
+        scan (scheduler.py:248-255): overflowed lanes are contained like
+        duplicates (error -> resync)."""
+        sl, dup = SD.pack_slice_rows_sharded(b, self.mesh.shape["streams"],
+                                             self.mb_h)
+        return sl, dup | sl["overflow"]
 
     @staticmethod
     def _sbc_probe(data: bytes):
@@ -258,12 +342,16 @@ class Fleet:
 
     def tick_submit(self, decode_audio: bool = True) -> PendingTick:
         """Gather one tick's pictures, launch its decode and its SBC
-        decode; nothing waits for the card (scheduler.py:565-658)."""
+        decode; nothing waits for the card (scheduler.py:565-658).
+        Under a mesh the presented planes and flags stay Sharded until
+        tick_collect."""
         pics, pts, pre_errors = self._gather_pictures()
         presented = info = None
-        if any(p is not None for p in pics):
+        active_any = any(p is not None for p in pics)
+        if active_any:
             self.events.log(Ev.DECODE_BATCH,
                             value=int(sum(p is not None for p in pics)))
+        if active_any and self.parser == "pallas" and self.mesh is None:
             with self.timers.measure("batch_assemble"):
                 b = M.make_picture_batch(
                     pics, words_per_lane=self.words_per_lane,
@@ -274,6 +362,40 @@ class Fleet:
                     M.decode_picture_batch_sliced(
                         b, self.frames, mb_width=self.mb_w,
                         mb_height=self.mb_h, tables=self.tables)
+        elif active_any and self.parser == "pallas":
+            # the slice scan under the mesh: per-shard span-sorted rows
+            n_sh = self.mesh.shape["streams"]
+            with self.timers.measure("batch_assemble"):
+                b = M.make_picture_batch(
+                    pics, words_per_lane=self.words_per_lane,
+                    max_slices=self.mb_h,
+                    geometry=(self.mb_w, self.mb_h))
+                sl, dup = self._pack_sharded(b)
+                params = self._bucket_params(pics, self.n // n_sh)
+                args = [PM.shard(self.mesh, sl[k], PM.LANES)
+                        for k in ROW_KEYS] + [
+                    PM.shard(self.mesh, b[k], PM.LANES)
+                    for k in ("intra_q", "non_intra_q", "active")]
+            dec = self._get_sharded_pallas(*params, chunked=False)
+            with self.timers.measure("device_decode"):
+                self.frames, presented, info = dec(*args, self.frames)
+            pre_errors = pre_errors | dup
+        elif active_any:
+            # the device parser: the sequential scan, per shard under a
+            # mesh
+            with self.timers.measure("batch_assemble"):
+                b = M.make_picture_batch(
+                    pics, words_per_lane=self.words_per_lane,
+                    max_slices=self.mb_h)
+                if self.mesh is None:
+                    args = M.xs_to_torch({k: b[k] for k in M.PICTURE_KEYS},
+                                         self.device).values()
+                else:
+                    args = [PM.shard(self.mesh, b[k], PM.LANES)
+                            for k in M.PICTURE_KEYS]
+            with self.timers.measure("device_decode"):
+                self.frames, presented, info = self._decode(*args,
+                                                            self.frames)
         (audio_device, host_pcm, audio_lanes, audio_starved,
          pcm_width) = self._submit_audio(decode_audio)
         return PendingTick(pics, pts, pre_errors, presented, info,
@@ -399,12 +521,12 @@ class Fleet:
         n = self.n
         if pend.presented is not None:
             with self.timers.measure("host_sync"):
+                pres = {k: self._joined(pend.presented[k]) for k in "yuv"}
                 if fetch_frames:
-                    y, u, v = (pend.presented[k].cpu().numpy()
-                               for k in "yuv")
+                    y, u, v = (pres[k].cpu().numpy() for k in "yuv")
                 else:
-                    y, u, v = (pend.presented[k] for k in "yuv")
-                errors = pend.info["error"].cpu().numpy()
+                    y, u, v = (pres[k] for k in "yuv")
+                errors = self._joined(pend.info["error"]).cpu().numpy()
         else:
             h, w = self.mb_h * 16, self.mb_w * 16
             y = np.zeros((n, h, w), np.uint8)
@@ -420,14 +542,30 @@ class Fleet:
                           errors | pend.pre_errors, audio_lanes, pcm,
                           pcm_samples, pend.audio_starved, audio_errors)
 
+    def _joined(self, x, spec=PM.LANES):
+        """A value of the fleet's decode as one tensor on the fleet's
+        device: Sharded values are joined."""
+        if isinstance(x, PM.Sharded):
+            return PM.unshard(self.mesh, x, spec)
+        return x
+
     # -- chunked decode: K ticks, one host sync --------------------------
     def run_chunk(self, n_ticks: int, decode_audio: bool = True,
                   fetch_frames: bool = True) -> list[TickResult]:
         """Decode up to one picture per lane for `n_ticks` consecutive
-        ticks in one device pass -- the lane-minor scan (K1F) and dense
-        phase (K2F, K3F) per tick, frame state carried on the card, one
-        host sync per chunk (scheduler.py:811-958).  Control-plane
+        ticks in one device pass, frame state carried on the card, one
+        host sync per chunk (scheduler.py:811-958): on "pallas" the
+        lane-minor scan (K1F) and dense phase (K2F, K3F) per tick, under
+        a mesh the sharded slice scan (_run_chunk_mesh_pallas); on
+        "device" the sequential scan (K1S, K2F, K3F), and under a mesh
+        one tick at a time, as the JAX fleet does.  Control-plane
         effects apply after the chunk; audio decodes per tick."""
+        if self.mesh is not None and self.parser != "pallas":
+            return [self.tick(decode_audio, fetch_frames=fetch_frames)
+                    for _ in range(n_ticks)]
+        if self.mesh is not None:
+            return self._run_chunk_mesh_pallas(n_ticks, decode_audio,
+                                               fetch_frames)
         gathered = []
         batches = []
         audio = []
@@ -442,6 +580,24 @@ class Fleet:
             audio.append(self._submit_audio(decode_audio))
         self.events.log(Ev.DECODE_BATCH, value=sum(
             int(b["active"].sum()) for b in batches))
+        if self.parser == "device":
+            with self.timers.measure("batch_assemble"):
+                stacked = M.xs_to_torch(
+                    {k: np.stack([b[k] for b in batches])
+                     for k in M.PICTURE_KEYS}, self.device)
+            with self.timers.measure("device_decode"):
+                self.frames, pres, errs = _chunk_decode_device(
+                    stacked, self.frames, mb_width=self.mb_w,
+                    mb_height=self.mb_h,
+                    max_steps=min(self.words_per_lane * 32, 12000),
+                    tables=self.tables)
+            with self.timers.measure("host_sync"):
+                if fetch_frames:
+                    ys, us, vs = (pres[k].cpu().numpy() for k in "yuv")
+                else:
+                    ys, us, vs = (pres[k] for k in "yuv")
+                errs = errs.cpu().numpy()
+            return self._chunk_results(gathered, audio, ys, us, vs, errs)
 
         with self.timers.measure("batch_assemble"):
             sls = [VS.pack_slice_rows(b, sort_rows=True) for b in batches]
@@ -473,7 +629,11 @@ class Fleet:
                 ys, us, vs = (pres[k] for k in "yuv")
             errs = errs.cpu().numpy() | np.stack([sl["overflow"]
                                                   for sl in sls])
+        return self._chunk_results(gathered, audio, ys, us, vs, errs)
 
+    def _chunk_results(self, gathered, audio, ys, us, vs, errs):
+        """The TickResults of a decoded chunk, with the control-plane
+        follow-ups of each tick in order."""
         results = []
         for t, (pics, pts, pre_errors) in enumerate(gathered):
             video_lanes = np.array([p is not None for p in pics])
@@ -488,6 +648,55 @@ class Fleet:
                 audio_lanes, pcm, pcm_samples, audio_starved,
                 audio_errors))
         return results
+
+    def _run_chunk_mesh_pallas(self, n_ticks: int, decode_audio: bool,
+                               fetch_frames: bool) -> list[TickResult]:
+        """run_chunk under a mesh on the slice scan: K ticks of the
+        sharded decoder, one host sync (scheduler.py:961-1058)."""
+        n_sh = self.mesh.shape["streams"]
+        gathered = []
+        packs = []
+        audio = []
+        dup_any = np.zeros(self.n, bool)
+        for _ in range(n_ticks):
+            pics, pts, pre_errors = self._gather_pictures()
+            gathered.append((pics, pts, pre_errors))
+            with self.timers.measure("batch_assemble"):
+                b = M.make_picture_batch(
+                    pics, words_per_lane=self.words_per_lane,
+                    max_slices=self.mb_h,
+                    geometry=(self.mb_w, self.mb_h))
+                sl, dup = self._pack_sharded(b)
+            for k in ("intra_q", "non_intra_q", "active"):
+                sl[k] = b[k]
+            packs.append(sl)
+            dup_any |= dup
+            audio.append(self._submit_audio(decode_audio))
+        with self.timers.measure("batch_assemble"):
+            Wp = max(p["words"].shape[1] for p in packs)
+            for p in packs:
+                p["words"] = np.pad(p["words"],
+                                    ((0, 0), (0, Wp - p["words"].shape[1])))
+            stacked = PM.shard_axis1_tree(self.mesh, {
+                k: np.stack([p[k] for p in packs])
+                for k in ROW_KEYS + ("intra_q", "non_intra_q", "active")})
+        self.events.log(Ev.DECODE_BATCH, value=sum(
+            int(p["active"].sum()) for p in packs))
+        per_tick = [self._bucket_params(pics, self.n // n_sh)
+                    for (pics, _, _) in gathered]
+        params = tuple(max(p[j] for p in per_tick) for j in range(3))
+        chunk_fn = self._get_sharded_pallas(*params, chunked=True)
+        with self.timers.measure("device_decode"):
+            self.frames, pres, errs = chunk_fn(stacked, self.frames)
+        with self.timers.measure("host_sync"):
+            pres = {k: self._joined(pres[k], PM.AXIS1) for k in "yuv"}
+            if fetch_frames:
+                ys, us, vs = (pres[k].cpu().numpy() for k in "yuv")
+            else:
+                ys, us, vs = (pres[k] for k in "yuv")
+            errs = self._joined(errs, PM.AXIS1).cpu().numpy() \
+                | dup_any[None, :]
+        return self._chunk_results(gathered, audio, ys, us, vs, errs)
 
     def _update_osd(self):
         """Per-tick OSD glue (espflix.cpp:862-884): refresh the time
@@ -563,9 +772,15 @@ class Fleet:
         planes, fields and PDM stay on the device (checksums in the
         TickResult; tap_lanes get their full DAC fields and PDM words
         back).  Control-plane effects apply at chunk boundaries.  Needs
-        Fleet(output=True)."""
+        Fleet(output=True) on the 'pallas' parser.  Under a mesh the
+        chain runs per shard (chain.make_sharded_full_chunk) on rows
+        packed per shard, the budgets sized for the worst shard; the
+        first call moves the SBC and PDM state onto the mesh."""
         if self.output is None:
             raise ValueError("run_chunk_full needs Fleet(output=True)")
+        if self.parser != "pallas":
+            raise ValueError("the full chain runs on the 'pallas' parser")
+        n_sh = self.mesh.shape["streams"] if self.mesh is not None else 0
         F = self.audio_F
         gathered = []
         xs_t = []
@@ -581,12 +796,22 @@ class Fleet:
                     max_slices=self.mb_h,
                     geometry=(self.mb_w, self.mb_h))
                 # the long symbol bucket absorbs every I picture's rows
+                # (per shard under a mesh: the worst shard's)
                 is_i = (b["pic_type"] == 1) & b["active"]
-                need_long = max(need_long, int(is_i.sum()) * self.mb_h)
-                sl = VS.pack_slice_rows(b, sort_rows=True,
-                                        device_windows=self._dev_win)
-                perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
-                                        sl["alive"], self.n, self.mb_h)
+                if n_sh:
+                    need_long = max(need_long, int(
+                        is_i.reshape(n_sh, -1).sum(axis=1).max())
+                        * self.mb_h)
+                    sl, dup = SD.pack_slice_rows_sharded(
+                        b, n_sh, self.mb_h, device_windows=self._dev_win)
+                    perm = sl["perm"]
+                    dup = dup | sl["overflow"]
+                else:
+                    need_long = max(need_long, int(is_i.sum()) * self.mb_h)
+                    sl = VS.pack_slice_rows(b, sort_rows=True,
+                                            device_windows=self._dev_win)
+                    perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
+                                            sl["alive"], self.n, self.mb_h)
             dup_any |= dup
             with self.timers.measure("gather"):
                 aud_words, aact, anval, starved, ch = \
@@ -629,8 +854,9 @@ class Fleet:
                 x["aud_words"] = np.pad(
                     x["aud_words"],
                     ((0, 0), (0, 0), (0, Wa - x["aud_words"].shape[2])))
-            xs = M.xs_to_torch({k: np.stack([x[k] for x in xs_t])
-                                 for k in xs_t[0]}, self.device)
+            stacked = {k: np.stack([x[k] for x in xs_t]) for k in xs_t[0]}
+            xs = M.xs_to_torch(stacked, self.device) if not n_sh else \
+                PM.shard_axis1_tree(self.mesh, stacked)
         self.events.log(Ev.DECODE_BATCH, value=sum(
             int(x["active"].sum()) for x in xs_t))
 
@@ -646,20 +872,35 @@ class Fleet:
                                device=self.device)
 
         long_rows, steps_long, steps_short = bucket_policy(
-            need_long, self.n * self.mb_h, steps_long=steps_long,
-            steps_short=steps_short)
+            need_long, (self.n // max(n_sh, 1)) * self.mb_h,
+            steps_long=steps_long, steps_short=steps_short)
+        run_kw = dict(mb_width=self.mb_w, mb_height=self.mb_h,
+                      long_rows=long_rows, steps_long=steps_long,
+                      steps_short=steps_short, tap=tap, channels=ch,
+                      return_planes=True, win=win,
+                      chunk=min(chunk, steps_short), scrolled=scrolled)
         with self.timers.measure("device_chain"):
-            (self.frames, self.sbc_state, self.output.pdm_state,
-             outs) = self.chain(
-                xs, self.frames, self.sbc_state, self.output.pdm_state,
-                tap_idx, mb_width=self.mb_w, mb_height=self.mb_h,
-                n_lanes=self.n, long_rows=long_rows,
-                steps_long=steps_long, steps_short=steps_short, tap=tap,
-                channels=ch, return_planes=True, win=win,
-                chunk=min(chunk, steps_short), scrolled=scrolled,
-                slide=slide)
+            if n_sh:
+                # the first call moves the lane-major carries onto the
+                # mesh (shard_lane_tree keeps Sharded values as they are)
+                self.sbc_state = PM.shard_lane_tree(self.mesh,
+                                                    self.sbc_state)
+                self.output.pdm_state = PM.shard_lane_tree(
+                    self.mesh, self.output.pdm_state)
+                fn = CH.make_sharded_full_chunk(
+                    self.mesh, n_lanes=self.n, n_aud_frames=F,
+                    pal=self.pal, **run_kw)
+                (self.frames, self.sbc_state, self.output.pdm_state,
+                 outs) = fn(xs, self.frames, self.sbc_state,
+                            self.output.pdm_state, tap_idx, slide)
+            else:
+                (self.frames, self.sbc_state, self.output.pdm_state,
+                 outs) = self.chain(
+                    xs, self.frames, self.sbc_state, self.output.pdm_state,
+                    tap_idx, n_lanes=self.n, slide=slide, **run_kw)
 
         with self.timers.measure("host_sync"):
+            outs = {k: self._joined(v, PM.AXIS1) for k, v in outs.items()}
             errs = outs["err"].cpu().numpy() | dup_any[None, :]
             fsum = outs["field_sum"].cpu().numpy()
             psum = outs["pdm_sum"].cpu().numpy()
@@ -690,6 +931,26 @@ class Fleet:
                 tap_fields=tap_f[t] if tap else None,
                 tap_pdm=tap_p[t] if tap else None))
         return results
+
+
+def _chunk_decode_device(stacked, frames, *, mb_width: int, mb_height: int,
+                         max_steps: int, tables: dict):
+    """K ticks of the device parser (scheduler.py:1551-1567): for each
+    tick the sequential scan (K1S) and the lane-minor dense phase (K2F,
+    K3F).  stacked: [K, ...] tensors of models/mpeg1.PICTURE_KEYS.
+    frames are updated in place.  Returns (frames, presented y/u/v
+    [K, N, H, W], err bool[K, N])."""
+    K = stacked["words"].shape[0]
+    pres, errs = [], []
+    for k in range(K):
+        frames, p, info = M.decode_picture_impl(
+            *[stacked[key][k] for key in M.PICTURE_KEYS], frames,
+            mb_width=mb_width, mb_height=mb_height, max_steps=max_steps,
+            tables=tables)
+        pres.append(p)
+        errs.append(info["error"])
+    stacked_p = {key: torch.stack([p[key] for p in pres]) for key in "yuv"}
+    return frames, stacked_p, torch.stack(errs)
 
 
 def _chunk_decode_pallas(sstk, frames, *, mb_width: int, mb_height: int,

@@ -24,27 +24,37 @@ from espflix_tpu_torch.ops import vlc_scan as VS
 F_AUDIO = 13        # 13 x 128 = 1664 >= 1600 PCM samples per 30 Hz tick
 
 
+def bench_pictures(lanes: int, *, n_pictures: int = 12, distinct: int = 8):
+    """(ticks, words_per_lane): ticks[k] the PictureData of every lane
+    at tick k -- `distinct` realistic_gop_script streams of n_pictures
+    tiled over the lanes in a mixed GOP phase (bench.py:268-300);
+    words_per_lane fits the largest picture."""
+    streams = []
+    for s in range(distinct):
+        rng = np.random.default_rng(1000 + s)
+        streams.append(M.parse_es(E.encode_es(realistic_gop_script(
+            rng, n_pictures=n_pictures)))[1])
+    wpl = max(max((len(p.payload) + 3) // 4 + 4 for p in ps)
+              for ps in streams)
+    phase = np.random.default_rng(7).integers(0, n_pictures, lanes)
+    ticks = [[streams[i % distinct][(k + phase[i]) % n_pictures]
+              for i in range(lanes)] for k in range(n_pictures)]
+    return ticks, wpl
+
+
 def bench_chunk(lanes: int, *, n_pictures: int = 12, distinct: int = 8,
                 win: bool = False, starve_p: float = 0.01,
                 long_rows: int | None = None):
     """(xs, kw): xs a dict of numpy [K, ...] arrays (K = n_pictures)
     with the decode keys (device-window keys when `win`) and the output
     keys; kw the static keyword arguments of run_full_chunk."""
-    streams = []
-    for s in range(distinct):
-        rng = np.random.default_rng(1000 + s)
-        streams.append(M.parse_es(E.encode_es(realistic_gop_script(
-            rng, n_pictures=n_pictures)))[1])
-    seq = streams[0][0].seq
+    ticks, wpl = bench_pictures(lanes, n_pictures=n_pictures,
+                                distinct=distinct)
+    seq = ticks[0][0].seq
     mbw, mbh = seq.mb_width, seq.mb_height
-    wpl = max(max((len(p.payload) + 3) // 4 + 4 for p in ps)
-              for ps in streams)
-    phase = np.random.default_rng(7).integers(0, n_pictures, lanes)
     K = n_pictures
     sls, bats, perms = [], [], []
-    for k in range(K):
-        sel = [streams[i % distinct][(k + phase[i]) % n_pictures]
-               for i in range(lanes)]
+    for sel in ticks:
         b = M.make_picture_batch(sel, words_per_lane=wpl, max_slices=mbh)
         sl = VS.pack_slice_rows(b, sort_rows=True, device_windows=win)
         assert not sl["overflow"].any()

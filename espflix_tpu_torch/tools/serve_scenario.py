@@ -10,10 +10,10 @@ fleet snapshot at half-time restored into a second fleet -- on
 
   * --stage decode (the default): the decode-only fleet, dispatched
     pipelined (Fleet.tick_submit / tick_collect, the default) or in
-    chunks of K = 4 ticks (--dispatch chunk, Fleet.run_chunk).  It runs
-    the Pallas parser, the port's only one; the JAX tool's default for
-    this stage is its 'device' parser, which presents the same frames
-    on clean streams;
+    chunks of K = 4 ticks (--dispatch chunk, Fleet.run_chunk), on the
+    slice-scan parser (build_fleet(parser="device") gives the
+    sequential scan, the JAX tool's default for this stage; both
+    present the same frames on clean streams);
   * --stage full: every chunk of K = 4 ticks through
     Fleet.run_chunk_full (decode, composite fields, SBC and PDM).
 
@@ -158,12 +158,15 @@ def generate_service(root: str, titles: list[str], *, seed: int = 0,
 
 def build_fleet(url: str, lanes: int, titles: int,
                 words_per_lane: int = 8192, stage: str = "decode",
-                device="cuda") -> Fleet:
-    """A fleet of `lanes` sessions on `device`, lane i playing title
-    i % titles: decode-only for stage "decode", with the output stage
-    and the full chain for "full"."""
+                device="cuda", parser: str = "pallas",
+                mesh=None) -> Fleet:
+    """A fleet of `lanes` sessions on `device` (or on `mesh`, a
+    parallel/mesh.Mesh), lane i playing title i % titles: decode-only
+    for stage "decode" on `parser`, with the output stage and the full
+    chain for "full"."""
     fleet = Fleet(lanes, words_per_lane=words_per_lane,
-                  output=stage == "full", device=device)
+                  output=stage == "full", device=device, parser=parser,
+                  mesh=mesh)
     for i in range(lanes):
         s = PlayerSession(url)
         if not s.init_service():
@@ -334,12 +337,10 @@ def main(argv=None):
                     help="file skips the local HTTP server")
     ap.add_argument("--stage", choices=["decode", "full"],
                     default="decode",
-                    help="decode = the decode-only fleet on the Pallas "
-                         "parser, the port's only one (the JAX tool's "
-                         "default for this stage is its 'device' parser, "
-                         "which presents the same frames on clean "
-                         "streams); full = decode + composite fields + "
-                         "SBC + PDM (runtime/chain.py), chunk-dispatched")
+                    help="decode = the decode-only fleet on the slice-"
+                         "scan parser; full = decode + composite fields "
+                         "+ SBC + PDM (runtime/chain.py), "
+                         "chunk-dispatched")
     ap.add_argument("--dispatch", choices=["pipelined", "chunk", "full"],
                     default=None,
                     help="device dispatch (default: pipelined for "

@@ -305,3 +305,10 @@ def test_service_generation_is_byte_identical(tmp_path):
     for f in files:
         assert (tmp_path / "j" / f).read_bytes() == \
             (tmp_path / "t" / f).read_bytes(), f
+
+
+def test_parallel_subpackage_is_covered():
+    """The mesh's modules are among the scanned and import-checked."""
+    assert {"espflix_tpu_torch.parallel",
+            "espflix_tpu_torch.parallel.mesh"} <= set(PORT_MODULES)
+    assert "espflix_tpu_torch/parallel/mesh.py" in PORT_FILES

@@ -383,3 +383,135 @@ def test_kernel_matches_plain_on_card(oof):
                                        fr["u"], fr["v"])])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+# ---- predict-only entries (K3P) ------------------------------------------
+
+def _predict(ref, mh, mv, S):
+    return TMC.predict_plane(torch.from_numpy(ref), torch.from_numpy(mh),
+                             torch.from_numpy(mv), S).numpy()
+
+
+@pytest.mark.parametrize("S", [16, 8])
+@pytest.mark.parametrize("oof", [False, True])
+def test_predict_plane_matches_pallas_kernel(S, oof):
+    """K3P's plain form (rule A) vs the Pallas _kernel of
+    predict_plane_pallas, in interpret mode, out-of-frame vectors
+    included."""
+    rng = np.random.default_rng(100 + S + oof)
+    N, mbh, mbw = 2, 4, 6
+    ref = _plane(rng, N, mbh * S, mbw * S)
+    mh, mv = _mvs(rng, N, mbh, mbw, S, oof)
+    j = np.asarray(JMP.predict_plane_pallas(
+        jnp.asarray(ref), jnp.asarray(mh), jnp.asarray(mv), S,
+        interpret=True))
+    assert np.array_equal(_predict(ref, mh, mv, S), j)
+
+
+@pytest.mark.parametrize("name", LUMA_VARIANTS[1:])
+@pytest.mark.parametrize("oof", [False, True])
+def test_predict_plane_matches_luma_variants(name, oof):
+    """K3P's plain form vs _phase_kernel, _phase2_kernel, _phase4_kernel
+    and _packed_kernel at the luma scale (interpret mode)."""
+    rng = np.random.default_rng(110 + oof + 2 * LUMA_VARIANTS.index(name))
+    N, mbh, mbw = 2, 4, 6
+    ref = _plane(rng, N, mbh * 16, mbw * 16)
+    mh, mv = _mvs(rng, N, mbh, mbw, 16, oof)
+    j = np.asarray(getattr(JMP, name)(
+        jnp.asarray(ref), jnp.asarray(mh), jnp.asarray(mv), 16,
+        interpret=True))
+    assert np.array_equal(_predict(ref, mh, mv, 16), j)
+
+
+@pytest.mark.parametrize("name", ["predict_chroma_pair_phase",
+                                  "predict_chroma_pair_packed"])
+@pytest.mark.parametrize("oof", [False, True])
+def test_predict_chroma_pair_matches_dual_kernels(name, oof):
+    """predict_chroma_pair vs the dual-plane forms of _phase_kernel and
+    _packed_kernel."""
+    rng = np.random.default_rng(120 + oof)
+    N, mbh, mbw = 2, 4, 6
+    ru, rv = _plane(rng, N, 32, 48), _plane(rng, N, 32, 48)
+    mh, mv = _mvs(rng, N, mbh, mbw, 8, oof)
+    ju, jv = getattr(JMP, name)(jnp.asarray(ru), jnp.asarray(rv),
+                                jnp.asarray(mh), jnp.asarray(mv),
+                                interpret=True)
+    pu, pv = TMC.predict_chroma_pair(*(torch.from_numpy(a)
+                                       for a in (ru, rv, mh, mv)))
+    assert np.array_equal(pu.numpy(), np.asarray(ju))
+    assert np.array_equal(pv.numpy(), np.asarray(jv))
+
+
+@pytest.mark.parametrize("S", [16, 8])
+@pytest.mark.parametrize("band", [(0, 2), (1, 2), (3, 1), (0, 4)])
+def test_predict_plane_rows_matches_jax(S, band):
+    """K3P's band form (rule B) vs mocomp.predict_plane_rows at several
+    bands of a 4-MB-row plane, vectors past every edge included."""
+    row0, n_rows = band
+    rng = np.random.default_rng(130 + S + row0 * 4 + n_rows)
+    N, mbh, mbw = 2, 4, 6
+    ref = _plane(rng, N, mbh * S, mbw * S)
+    mh, mv = _mvs(rng, N, mbh, mbw, S, True)
+    mh, mv = mh[:, row0:row0 + n_rows], mv[:, row0:row0 + n_rows]
+    j = np.asarray(JMC.predict_plane_rows(
+        jnp.asarray(ref), jnp.asarray(mh), jnp.asarray(mv), S, row0))
+    t = TMC.predict_plane_rows(torch.from_numpy(ref), torch.from_numpy(mh),
+                               torch.from_numpy(mv), S, row0).numpy()
+    assert t.shape == (N, n_rows * S, mbw * S)
+    assert np.array_equal(t, j)
+
+
+def test_edge_rules_differ_at_the_edge():
+    """The reference's two edge rules: rule A (predict_plane_pallas,
+    predict_plane_mxu) and rule B (mocomp.predict_plane) agree on
+    in-frame windows and differ when a half-pel window touches the
+    right or bottom edge or reaches past the plane.  The port keeps
+    each with its own caller."""
+    rng = np.random.default_rng(140)
+    N, mbh, mbw, S = 1, 2, 3, 16
+    ref = _plane(rng, N, mbh * S, mbw * S)
+    mh = np.zeros((N, mbh, mbw), np.int32)
+    mv = np.zeros((N, mbh, mbw), np.int32)
+    mh[0, 0, 2] = 1            # half-pel right of the last MB column
+    mv[0, 1, 0] = 1            # half-pel below the last MB row
+    mh[0, 1, 1] = -2 * S - 4   # window past the left edge
+    args = [jnp.asarray(a) for a in (ref, mh, mv)]
+    rule_a = np.asarray(JMP.predict_plane_pallas(*args, S, interpret=True))
+    rule_b = np.asarray(JMC.predict_plane(*args, S))
+    assert np.array_equal(_predict(ref, mh, mv, S), rule_a)
+    assert np.array_equal(TMC.predict_plane_rows(
+        *(torch.from_numpy(a) for a in (ref, mh, mv)), S).numpy(), rule_b)
+    diff = rule_a != rule_b
+    assert diff[0, :S, 2 * S:].any() and diff[0, S:, :S].any() \
+        and diff[0, S:, S:2 * S].any()
+    # MB (0, 0) and (0, 1) stay inside the plane: both rules agree
+    assert not diff[0, :S, :2 * S].any()
+    # at the edge rule A reads zero past the plane, rule B the last pixel
+    assert rule_a[0, S - 1, 3 * S - 1] == (int(ref[0, S - 1, 3 * S - 1])
+                                          + 1) >> 1
+    assert rule_b[0, S - 1, 3 * S - 1] == ref[0, S - 1, 3 * S - 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip_taps", [False, True])
+def test_predict_kernel_matches_plain_on_card(clip_taps):
+    """K3P against its plain form on the card: rule A over whole planes,
+    rule B over a band, luma and chroma, vectors past every edge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(150 + clip_taps)
+    N, mbh, mbw = 4, 12, 22
+    for S in (16, 8):
+        ref = torch.from_numpy(_plane(rng, N, mbh * S, mbw * S))
+        mh, mv = (torch.from_numpy(a) for a in _mvs(rng, N, mbh, mbw, S,
+                                                   True))
+        if clip_taps:
+            band = (slice(None), slice(3, 9))
+            want = TMC.predict_plane_rows_torch(ref, mh[band], mv[band], S,
+                                                3)
+            got = TMC.predict_plane_rows(ref.cuda(), mh[band].cuda(),
+                                         mv[band].cuda(), S, 3)
+        else:
+            want = TMC.predict_plane_torch(ref, mh, mv, S)
+            got = TMC.predict_plane(ref.cuda(), mh.cuda(), mv.cuda(), S)
+        assert torch.equal(got.cpu(), want)

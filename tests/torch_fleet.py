@@ -1,9 +1,9 @@
-"""Helpers of the decode-only fleet parity tests (test_torch_decode*.py):
-one script drives a JAX Fleet(parser="pallas") and the port's
-Fleet(output=False, device="cpu") on the same file:// service, from the
-same lived-in start state, and every TickResult field, the final
-frames, parity and SBC history, the sessions and the event logs are
-compared."""
+"""Helpers of the decode-only fleet parity tests (test_torch_decode*.py,
+test_torch_device_parser.py, test_torch_mesh_*fleet.py): one script
+drives a JAX Fleet and the port's Fleet(output=False, device="cpu") on
+the same parser (and mesh) and file:// service, from the same lived-in
+start state, and every TickResult field, the final frames, parity and
+SBC history, the sessions and the event logs are compared."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import torch
 from espflix_tpu.runtime import player as JPL
 from espflix_tpu.runtime import scheduler as JSCH
 from espflix_tpu.tools import serve_scenario as JSS
+from espflix_tpu_torch.parallel import mesh as TPM
 from espflix_tpu_torch.runtime import chain as TCH
 from espflix_tpu_torch.runtime import player as TPL
 from espflix_tpu_torch.runtime import scheduler as TSCH
@@ -40,13 +41,21 @@ def session_view(s):
         s.snapshot(), {i: t.pos for i, t in s.info.items()})
 
 
-def _fleets(url, n, lanes, corrupt_lane, seed):
-    """(jax fleet, port fleet): sessions on `lanes` (title lane % 2),
-    the first picture of `corrupt_lane` replaced by
+def _fleets(url, n, lanes, corrupt_lane, seed, parser="pallas", shards=0):
+    """(jax fleet, port fleet) on `parser`: sessions on `lanes` (title
+    lane % 2), the first picture of `corrupt_lane` replaced by
     serve_scenario.corrupt_picture(), and the same random frames,
-    parity and SBC history in both."""
-    jf = JSCH.Fleet(n, words_per_lane=8192, parser="pallas")
-    tf = TSCH.Fleet(n, words_per_lane=8192, output=False, device="cpu")
+    parity and SBC history in both.  shards > 0 puts both fleets on a
+    'streams' mesh of that many devices (the JAX package's first
+    virtual CPU devices; the port's [cpu] * shards)."""
+    jmesh = tmesh = None
+    if shards:
+        from espflix_tpu.parallel import mesh as JPM
+        jmesh = JPM.make_mesh(shards)
+        tmesh = TPM.make_mesh(devices=[torch.device("cpu")] * shards)
+    jf = JSCH.Fleet(n, words_per_lane=8192, parser=parser, mesh=jmesh)
+    tf = TSCH.Fleet(n, words_per_lane=8192, output=False, device="cpu",
+                    parser=parser, mesh=tmesh)
     for fleet, PL, SS in ((jf, JPL, JSS), (tf, TPL, TSS)):
         for i in lanes:
             s = PL.PlayerSession(url)
@@ -77,14 +86,23 @@ def _fleets(url, n, lanes, corrupt_lane, seed):
     jf.sbc_state = jnp.asarray(sbc)
     tf.frames, tf.sbc_state, _ = TCH.state_from_numpy(frames, sbc, None,
                                                       "cpu")
+    if shards:
+        jf.frames = JPM.shard_lane_tree(jmesh, jf.frames)
+        tf.frames = TPM.shard_lane_tree(tmesh, tf.frames)
     return jf, tf
 
 
-def run_both(url, script, *, n, lanes, corrupt_lane=None, seed=0):
+def run_both(url, script, *, n, lanes, corrupt_lane=None, seed=0,
+             parser="pallas", shards=0):
     """script(fleet) -> list of TickResults, run on both fleets.
     Returns (jf, jax results, tf, port results)."""
-    jf, tf = _fleets(url, n, lanes, corrupt_lane, seed)
+    jf, tf = _fleets(url, n, lanes, corrupt_lane, seed, parser, shards)
     return jf, script(jf), tf, script(tf)
+
+
+def ticks_then_chunk(fleet):
+    """Two ticks, then a run_chunk of two."""
+    return [fleet.tick(), fleet.tick()] + fleet.run_chunk(2)
 
 
 def assert_results_equal(jr, tr, key):
@@ -99,7 +117,10 @@ def assert_results_equal(jr, tr, key):
 
 
 def assert_carries_equal(jf, tf):
-    fr, sbc, _ = TCH.state_to_numpy(tf.frames, tf.sbc_state, None)
+    frames = tf.frames
+    if tf.mesh is not None:
+        frames = TPM.unshard_tree(tf.mesh, frames)
+    fr, sbc, _ = TCH.state_to_numpy(frames, tf.sbc_state, None)
     for k in ("y", "u", "v", "parity"):
         a, b = fr[k], np.asarray(jf.frames[k])
         assert a.dtype == b.dtype and np.array_equal(a, b), k
