@@ -12,12 +12,20 @@ line is printed):
    the card's name and power limit (nvidia-smi);
 2. build: compiles espflix_tpu_torch/csrc/*.cu for sm_90a (build/), one
    nvcc per source, all at once, and the sessions' native TS demuxer;
+   prints each scan kernel's registers, local (stack) bytes and static
+   shared bytes (cudaFuncGetAttributes);
 3. kernels: each of the ten entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
    B over a band) and the sequential scan K1S -- against its plain
    PyTorch version on the card at the main path's shapes (the bench
    tick's 1,024 lanes at 352x192), exact equality, CUDA-event medians,
-   and the bound of its work;
+   the call's latency (`ms`) and the device's time alone
+   (`device_ms`), and the bound of its work (for the scans the larger
+   of bytes and the longest row's or slice's FSM chain); K1S's two
+   passes alone (the second's resolution against its plain form,
+   resolve_slices) and a second K1S call with corrupt slices, idle
+   lanes and a budget that cuts lanes inside a later slice, which
+   reports the lanes of its in-order pass;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -79,8 +87,15 @@ PLAIN_TICKS = 6
 # an H100 SXM's HBM3 rate (NVIDIA's data sheet), for the bytes bound
 HBM_BPS = 3.35e12
 # latency of one dependent 32-bit integer operation, in SM clock
-# cycles (an assumption of the K5 bound; see PERF.md)
+# cycles (an assumption of the K5 and scan bounds; see PERF.md)
 INT_DEP_CYCLES = 4
+# one step of the scan kernels' FSM chain: a shared-memory table load
+# (SMEM_LOAD_CYCLES, an assumption) and about ten dependent integer ops
+SMEM_LOAD_CYCLES = 30
+SCAN_STEP_CYCLES = SMEM_LOAD_CYCLES + 10 * INT_DEP_CYCLES
+# SM clock cycles the card sleeps before a timed run (~10 ms at 1,980
+# MHz, longer than any wrapper's host work)
+BUSY_CYCLES = 20_000_000
 
 
 def log(*a):
@@ -95,21 +110,45 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int):
+def time_ms(fn, reps: int, busy: bool = False):
     """Median CUDA-event time of fn() over reps runs, after one warm
-    run."""
+    run: the call's latency, the host's enqueue included.  busy: the
+    card sleeps (torch.cuda._sleep, BUSY_CYCLES) while the host enqueues
+    each run, so the events bracket the device's work alone (it differs
+    where the host's part is the longer one)."""
     import torch
     fn()
     ts = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(BUSY_CYCLES)
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def timed(fn, reps: int) -> dict:
+    """A kernel entry's times of fn(): ms, the call's latency, and
+    device_ms, the device's work alone (time_ms)."""
+    return dict(ms=time_ms(fn, reps), device_ms=time_ms(fn, reps, busy=True))
+
+
+def run_timed(fn):
+    """fn() once: its result and its CUDA-event time in ms.  For the
+    plain forms that take seconds, whose one run is both the check and
+    the time."""
+    import torch
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
 
 
 def max_abs_err(a, b) -> int:
@@ -335,6 +374,12 @@ def bound(moved_bytes: int, chain_ms: float = 0.0):
     return (chain_ms, "operations") if chain_ms > ms else (ms, "bytes")
 
 
+def scan_chain_ms(steps: int, clock_hz: float) -> float:
+    """The least time of a scan row's FSM chain of `steps` steps at
+    SCAN_STEP_CYCLES a step and the SM clock."""
+    return steps * SCAN_STEP_CYCLES / clock_hz * 1e3
+
+
 @contextlib.contextmanager
 def http_service(seed: int = 0):
     """The serving phases' service (2 titles of 4 GOPs) behind the local
@@ -447,7 +492,7 @@ def serve_phase_b(dev, url: str, lanes: int, ticks: int = 8,
 
 
 def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
-                 mbh: int) -> list:
+                 mbh: int, clock_hz: float) -> list:
     """K1F, K2F and K3F against their plain versions on the bench tick
     `x` (run_chunk's scan configuration: two buckets of 2,048 / 512
     steps in chunks of 128, long_rows from bucket_policy); returns
@@ -469,7 +514,8 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
                steps_long=s_long, steps_short=s_short, chunk=128,
                lut=chain.scan_lut, zigzag=chain.zigzag)
     got = VS.run_scan_bucketed(*args, **skw)
-    ref = VS.run_scan_bucketed_torch(*args, **skw)
+    ref, plain_ms = run_timed(lambda: VS.run_scan_bucketed_torch(*args,
+                                                                 **skw))
     err = require_equal("K1F scan", zip(got, ref))
     if got[3].any():
         raise AssertionError("K1F: lane errors on well-formed content")
@@ -478,13 +524,14 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
         source="espflix_tpu_torch/csrc/scan.cu",
         replaces="espflix_tpu/ops/vlc_scan_pallas.py:55",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: VS.run_scan_bucketed(*args, **skw), reps),
-        plain_ms=time_ms(lambda: VS.run_scan_bucketed_torch(*args, **skw),
-                         max(1, reps // 2))))
+        **timed(lambda: VS.run_scan_bucketed(*args, **skw), reps),
+        plain_ms=plain_ms))
     out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
-        *args, chain.scan_lut, chain.zigzag, *got))
+        *args, VS.compact_lut(chain.scan_lut), chain.zigzag, *got),
+        scan_chain_ms(int(got[4]), clock_hz))
     log(f"[kernel] {out[-1]} (long_rows {long_rows}, steps "
-        f"{s_long}/{s_short})")
+        f"{s_long}/{s_short}; chain: the longest row's {int(got[4])} "
+        f"steps x {SCAN_STEP_CYCLES} cycles)")
 
     coeffs, recs, nfinal = got[:3]
     idct_args = (coeffs, recs, nfinal, x["intra_q"], x["non_intra_q"],
@@ -497,7 +544,7 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
         replaces="espflix_tpu/ops/idct_pallas.py:86",
         max_abs_err=require_equal("K2F idct", [(res_k, res_p)]),
         library_ms=None,
-        ms=time_ms(lambda: IDCT.block_residuals_flat(*idct_args), reps),
+        **timed(lambda: IDCT.block_residuals_flat(*idct_args), reps),
         plain_ms=time_ms(lambda: IDCT.block_residuals_flat_torch(
             *idct_args), reps)))
     out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(*idct_args,
@@ -519,7 +566,7 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:92,161",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: MC.predict_compose_put_flat(
+        **timed(lambda: MC.predict_compose_put_flat(
             res_k, recs, active, fr_k, **mc_kw), reps),
         plain_ms=time_ms(lambda: MC.predict_compose_put_flat_torch(
             res_k, recs, active, fr_p, **mc_kw), reps)))
@@ -620,13 +667,15 @@ def decode_parity(dev, url: str, lanes: int, ticks: int = 4,
 
 
 def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
-                        reps: int, mbw: int, mbh: int, dev) -> list:
+                        reps: int, mbw: int, mbh: int, dev,
+                        clock_hz: float) -> list:
     """K3P and K1S against their plain versions at the bench tick's
     1,024 lanes: K3P over the y, u and v planes (three launches, as
     the mesh's decoder makes them) with the vectors of the P-heavy tick
     `x_p` and with random vectors past every edge, rule A over whole
     planes and rule B over a band of MB rows 3-8; K1S over the pictures
-    of the I-heavy tick `x_i_pics`.  Returns their kernel entries."""
+    of the I-heavy tick `x_i_pics`, then over the same pictures with
+    faults (seq_faulted).  Returns their kernel entries."""
     import torch
     from espflix_tpu_torch.models import mpeg1 as M
     from espflix_tpu_torch.ops import mocomp as MC
@@ -679,7 +728,7 @@ def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:47,350,501,613,747",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: run(MC.predict_plane, mvs), reps),
+        **timed(lambda: run(MC.predict_plane, mvs), reps),
         plain_ms=time_ms(lambda: run(MC.predict_plane_torch, mvs), reps)))
     out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
         *refs, *[m for pair in mvs for m in pair], *preds))
@@ -691,29 +740,110 @@ def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
     skw = dict(mb_width=mbw, mb_height=mbh, max_steps=12000,
                lut=chain.scan_lut, zigzag=chain.zigzag)
     got = VS.run_scan(*xs, **skw)
-    # the plain scan takes seconds: its one run is the check and the time
-    a, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    ref = VS.run_scan_torch(*xs, **skw)
-    e.record()
-    torch.cuda.synchronize()
+    ref, plain_ms = run_timed(lambda: VS.run_scan_torch(*xs, **skw))
     err = require_equal("K1S scan", zip(got, ref))
     if got[3].any():
         raise AssertionError("K1S: lane errors on well-formed content")
+    # the two passes alone; the first's reports give the chain bound's
+    # longest slice, and the second's resolution equals its plain form
+    akw = dict(mb_width=mbw, mb_height=mbh, budget=12000,
+               lut=chain.scan_lut, zigzag=chain.zigzag)
+    parts = VS.scan_slices_cuda(*xs, **akw)
+    longest = int(parts[3].max())
+    fin = VS.finish_slices_cuda(*xs, *parts, **akw)
+    plain_res = VS.resolve_slices(*parts[3:], xs[3], 12000)
+    require_equal("K1S resolution", [(fin[3], plain_res[0]),
+                                     (fin[4], plain_res[1].max()),
+                                     (fin[5], plain_res[2])])
+    # where the first pass's time goes: its longest slice alone (one
+    # thread), that slice's lane alone (one warp), all lanes
+    lane = int(parts[3].max(dim=1).values.argmax())
+    k = int(parts[3][lane].argmax())
+    one_lane = [t[lane:lane + 1].clone() for t in xs]
+    one_slice = [t.clone() for t in one_lane]
+    one_slice[1][0, 0], one_slice[2][0, 0] = xs[1][lane, k], xs[2][lane, k]
+    one_slice[3][0] = 1
+    split_ms = {k: time_ms(fn, reps, busy=True) for k, fn in dict(
+        pass_a=lambda: VS.scan_slices_cuda(*xs, **akw),
+        pass_a_its_lane=lambda: VS.scan_slices_cuda(*one_lane, **akw),
+        pass_a_longest_slice=lambda: VS.scan_slices_cuda(*one_slice, **akw),
+        pass_b=lambda: VS.finish_slices_cuda(*xs, *parts, **akw)).items()}
     out.append(dict(
         name="K1S_slice_scan_seq", route="cuda",
         source="espflix_tpu_torch/csrc/scan.cu",
         replaces="espflix_tpu/ops/vlc_scan.py:662 (XLA run_scan; no "
                  "Pallas kernel)",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: VS.run_scan(*xs, **skw), reps),
-        plain_ms=a.elapsed_time(e)))
+        **timed(lambda: VS.run_scan(*xs, **skw), reps),
+        plain_ms=plain_ms))
     out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
-        *xs, chain.scan_lut, chain.zigzag, *got))
+        *xs, VS.compact_lut(chain.scan_lut), chain.zigzag, *got),
+        scan_chain_ms(longest, clock_hz))
     log(f"[kernel] {out[-1]} ({int(got[4])} steps, words/lane "
-        f"{xs[0].shape[1]}, {int(b['n_slices'].sum())} slices)")
+        f"{xs[0].shape[1]}, {int(b['n_slices'].sum())} slices; chain: the "
+        f"longest slice's {longest} steps x {SCAN_STEP_CYCLES} cycles; "
+        f"device ms of the parts {split_ms})")
+    out[-1]["max_abs_err"] = max(err, seq_faulted(b, dev, chain, reps, mbw,
+                                                  mbh))
     torch.cuda.synchronize()
     return out
+
+
+def seq_faulted(b: dict, dev, chain, reps: int, mbw: int, mbh: int,
+                budget: int = 3000) -> int:
+    """K1S at 1,024 lanes on the I-heavy tick's pictures `b` with faults:
+    slice 5 of every 16th lane corrupt (its later slices never run), every
+    64th lane idle, and a budget that cuts the longer pictures inside a
+    later slice; held equal to run_scan_torch.  Logs the lanes in error,
+    the lanes cut inside slice 1 or later, and the lanes the in-order
+    pass (pass B) took.  Returns the max |err|."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    from espflix_tpu_torch.tools.serve_scenario import corrupt_slice
+
+    bf = {k: np.copy(v) if isinstance(v, np.ndarray) else v
+          for k, v in b.items()}
+    corrupt = [i for i in range(3, len(bf["words"]), 16)
+               if bf["n_slices"][i] > 6]
+    for i in corrupt:
+        corrupt_slice(bf, i, 5)
+    bf["n_slices"][7::64] = 0
+    xs = list(M.xs_to_torch({k: bf[k] for k in M.PICTURE_KEYS[:7]},
+                            dev).values())
+    skw = dict(mb_width=mbw, mb_height=mbh, max_steps=budget,
+               lut=chain.scan_lut, zigzag=chain.zigzag)
+    got = VS.run_scan(*xs, **skw)
+    ref, plain_ms = run_timed(lambda: VS.run_scan_torch(*xs, **skw))
+    err = require_equal("K1S scan with faults", zip(got, ref))
+    akw = dict(mb_width=mbw, mb_height=mbh, budget=budget,
+               lut=chain.scan_lut, zigzag=chain.zigzag)
+    parts = VS.scan_slices_cuda(*xs, **akw)
+    steps, end, lo, hi = parts[3:]
+    redo = VS.finish_slices_cuda(*xs, *parts, **akw)[5]
+    require_equal("K1S resolution with faults", [
+        (redo, VS.resolve_slices(steps, end, lo, hi, xs[3], budget)[2])])
+    live = torch.arange(steps.shape[1], device=dev)[None, :] < xs[3][:, None]
+    s = torch.where(live, steps, 0).long()
+    c = torch.cumsum(s, dim=1) - s
+    clean = torch.cummin(((end == VS.END_CLEAN) | ~live).int(), dim=1).values
+    entered = torch.cat([torch.ones_like(clean[:, :1]), clean[:, :-1]],
+                        dim=1).bool() & (c < budget)
+    cut_later = (entered & (c + s > budget))[:, 1:].any(dim=1)
+    n_redo, n_cut, n_err = (int(t.sum()) for t in (redo, cut_later, got[3]))
+    if not (n_redo and n_cut and n_err) or got[3][7::64].any():
+        raise AssertionError(
+            f"K1S with faults: {n_err} lanes in error, {n_cut} cut inside "
+            f"a later slice, {n_redo} through pass B, idle lanes "
+            f"{got[3][7::64].tolist()}")
+    log(f"[kernel] K1S with faults ({len(bf['words'])} lanes, budget "
+        f"{budget}): kernel == plain; {len(corrupt)} lanes with a corrupt "
+        f"slice 5, {len(bf['words'][7::64])} idle, {n_cut} cut inside slice "
+        f"1 or later; {n_err} lanes in error, {n_redo} through pass B; "
+        f"ms {time_ms(lambda: VS.run_scan(*xs, **skw), reps):.3f}, plain "
+        f"{plain_ms:.1f}")
+    return err
 
 
 def mesh_devices(n: int):
@@ -984,6 +1114,8 @@ def main() -> int:
         f"{'%.1f s' % build.build_seconds if build.build_seconds else 'cached'}"
         f", {len([p for p in build.sources() if p.suffix == '.cu'])} "
         "sources in parallel)")
+    log(f"[resources] scan kernels (cudaFuncGetAttributes): "
+        f"{VS.kernel_resources()}")
     # the sessions' TS demuxer (native/ts_demux.cpp) builds at its first
     # use; build it here so that the timed serving phase does not
     t0 = time.perf_counter()
@@ -1022,7 +1154,8 @@ def main() -> int:
     scan_args = [x[k] for k in CH.DECODE_KEYS[:9]]
     scan_kw = dict(ckw, lut=chain.scan_lut, zigzag=chain.zigzag)
     got = VS.run_scan_bucketed_dense(*scan_args, **scan_kw)
-    ref = VS.run_scan_bucketed_dense_torch(*scan_args, **scan_kw)
+    ref, plain_ms = run_timed(lambda: VS.run_scan_bucketed_dense_torch(
+        *scan_args, **scan_kw))
     err = require_equal("K1 scan", zip(got, ref))
     if got[3].any():
         raise AssertionError("K1: lane errors on well-formed content")
@@ -1031,13 +1164,14 @@ def main() -> int:
         source="espflix_tpu_torch/csrc/scan.cu",
         replaces="espflix_tpu/ops/vlc_scan_pallas.py:55",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: VS.run_scan_bucketed_dense(*scan_args,
-                                                     **scan_kw), args.reps),
-        plain_ms=time_ms(lambda: VS.run_scan_bucketed_dense_torch(
-            *scan_args, **scan_kw), max(1, args.reps // 2))))
+        **timed(lambda: VS.run_scan_bucketed_dense(*scan_args, **scan_kw),
+                args.reps),
+        plain_ms=plain_ms))
     kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
-        *scan_args, chain.scan_lut, chain.zigzag, *got))
-    log(f"[kernel] {kernels[-1]}")
+        *scan_args, VS.compact_lut(chain.scan_lut), chain.zigzag, *got),
+        scan_chain_ms(int(got[4]), sm_clock_hz))
+    log(f"[kernel] {kernels[-1]} (chain: the longest row's {int(got[4])} "
+        f"steps x {SCAN_STEP_CYCLES} cycles)")
 
     coeffs_T, recs, nfinal = got[:3]
     intra_bl = ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1)
@@ -1052,7 +1186,7 @@ def main() -> int:
         replaces="espflix_tpu/ops/idct_pallas.py:171",
         max_abs_err=require_equal("K2 idct", [(res_k, res_p)]),
         library_ms=None,
-        ms=time_ms(lambda: IDCT.block_residuals_T(*idct_args), args.reps),
+        **timed(lambda: IDCT.block_residuals_T(*idct_args), args.reps),
         plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
                          args.reps)))
     kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
@@ -1085,8 +1219,8 @@ def main() -> int:
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:975,1084",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: MC.predict_compose_put(res_k, recs, active,
-                                                  fr_k, **mc_kw), args.reps),
+        **timed(lambda: MC.predict_compose_put(res_k, recs, active, fr_k,
+                                               **mc_kw), args.reps),
         plain_ms=time_ms(lambda: MC.predict_compose_put_torch(
             res_k, recs, active, fr_p, **mc_kw), args.reps)))
     kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
@@ -1109,7 +1243,7 @@ def main() -> int:
         source="espflix_tpu_torch/csrc/composite.cu",
         replaces="espflix_tpu/ops/composite_pallas.py:67",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: CO.synthesize_field_pair_parts(
+        **timed(lambda: CO.synthesize_field_pair_parts(
             *comp_args, **comp_kw), args.reps),
         plain_ms=time_ms(lambda: CO.synthesize_field_pair_parts_torch(
             *comp_args, **comp_kw), args.reps)))
@@ -1131,26 +1265,20 @@ def main() -> int:
     square = torch.where(
         (torch.arange(S, device=dev)[None, :] // period) % 2 == 1,
         32767, -32767).to(torch.int16)
-    err = 0
+    err, pdm_plain_ms = 0, []
     for label, p_in in (("decoded PCM", pcm), ("square waves", square)):
+        ref, ms = run_timed(lambda: DS.modulate_torch(p_in, st, n_samples=S))
+        pdm_plain_ms.append(ms)
         err = max(err, require_equal(
             f"K5 pdm ({label})",
-            zip(DS.modulate(p_in, st, n_samples=S),
-                DS.modulate_torch(p_in, st, n_samples=S))))
+            zip(DS.modulate(p_in, st, n_samples=S), ref)))
     kernels.append(dict(
         name="K5_pdm", route="cuda",
         source="espflix_tpu_torch/csrc/pdm.cu",
         replaces="espflix_tpu/ops/delta_sigma_pallas.py:61",
         max_abs_err=err, library_ms=None,
-        ms=time_ms(lambda: DS.modulate(pcm, st, n_samples=S), args.reps),
-        plain_ms=None))
-    # the plain PDM takes seconds: one run, already warm from the check
-    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    a.record()
-    DS.modulate_torch(pcm, st, n_samples=S)
-    b.record()
-    torch.cuda.synchronize()
-    kernels[-1]["plain_ms"] = a.elapsed_time(b)
+        **timed(lambda: DS.modulate(pcm, st, n_samples=S), args.reps),
+        plain_ms=pdm_plain_ms[0]))
     # each lane is one chain of 2 * 16 * S bit steps, each three
     # dependent integer operations (shift, add into i1, add into i2)
     steps = 2 * 16 * S
@@ -1160,11 +1288,14 @@ def main() -> int:
     log(f"[kernel] {kernels[-1]} (chain of {steps} steps at "
         f"{sm_clock_hz / 1e6:.0f} MHz)")
 
-    kernels += flat_kernels(x, chain, rand_frames, args.reps, mbw, mbh)
+    kernels += flat_kernels(x, chain, rand_frames, args.reps, mbw, mbh,
+                            sm_clock_hz)
     k_p = int(n_i.argmin())
     kernels += predict_seq_kernels(
         {k: v[k_p] for k, v in xs.items()}, bench_ticks[k_i], wpl, chain,
-        rand_frames, args.reps, mbw, mbh, dev)
+        rand_frames, args.reps, mbw, mbh, dev, sm_clock_hz)
+
+    log(f"[time] phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 4. the chain ----------------------------------------------------
     def fresh_state():
@@ -1249,6 +1380,8 @@ def main() -> int:
         f"{N} lanes mid-slide, launches {chain_counts['scrolled']}")
     compare_plain("scrolled", xs_s, kw_s, K_s, slide=slide)
 
+    log(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 5, 6. serving: one service behind the local HTTP server -------
     serve_lanes = min(256, args.lanes)
     with http_service() as url:
@@ -1256,9 +1389,11 @@ def main() -> int:
         serve_counts = serve_phase_a(dev, url, serve_lanes, 16, smi)
         # B: kernel path == plain path at A's lanes
         serve_phase_b(dev, url, serve_lanes)
+        log(f"[time] phases 5-6 done at {time.perf_counter() - t_start:.1f} s")
         # 7. decode-only serving, then kernel path == plain path
         decode_counts = decode_serving(dev, url, serve_lanes, smi)
         decode_parity(dev, url, serve_lanes)
+        log(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
         # 8. the mesh
         mesh_counts = mesh_phase(dev, url, serve_lanes, smi)
 

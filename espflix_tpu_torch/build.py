@@ -32,9 +32,10 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 # C signatures: "p" a device pointer, "i" an int; every entry point
 # ends with the stream (a pointer) and returns int (cudaError_t)
 SIGNATURES = {
-    "esp_scan_dense": "p" * 16 + "i" * 8,
-    "esp_scan_flat": "p" * 15 + "i" * 7,
-    "esp_scan_seq": "p" * 14 + "i" * 6,
+    "esp_scan_dense": "p" * 16 + "i" * 9,
+    "esp_scan_flat": "p" * 15 + "i" * 8,
+    "esp_scan_slices": "p" * 16 + "i" * 7,
+    "esp_scan_seq": "p" * 19 + "i" * 7,
     "esp_idct_T": "p" * 8 + "i" * 2,
     "esp_idct_flat": "p" * 7 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
@@ -124,6 +125,8 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.esp_set_device.argtypes = [ctypes.c_int]
         lib.esp_set_device.restype = ctypes.c_int
+        lib.esp_scan_resources.argtypes = [ctypes.c_void_p]
+        lib.esp_scan_resources.restype = ctypes.c_int
         _lib = lib
     return _lib
 

@@ -21,10 +21,20 @@ the same FSM, each emission SET into [N, MB*384] coefficients, [N, MB]
 records and [N, MB*6] EOB counts -- plainly by the lockstep form
 (``run_scan_bucketed_torch``), or by K1F (csrc/scan.cu) on a card.
 
+``run_scan`` is the device parser's sequential scan (one picture per
+lane, slice after slice): plainly the lockstep FSM over the lanes
+(``run_scan_torch``), on a card K1S -- the same scan split at slice
+starts: a pass with a thread per slice (``scan_slices_cuda``), then a
+pass that resolves each lane from its slices' step counts (the plain
+form of that is ``resolve_slices``) and scans again, in order, the
+lanes the split cannot reproduce (``finish_slices_cuda``).
+
 All forms decode every VLC table from the unified LUT of the JAX package
 (``_mega_lut_np``); the JAX step decodes the same codes with compare
-cascades, and the parity tests pin the two equal.  Row budgets count
-FSM steps: rows ``< long_rows`` get ``steps_long`` and the rest
+cascades, and the parity tests pin the two equal.  The kernels read a
+compact form of the LUT their wrapper is given from shared memory
+(``compact_lut``).  Row
+budgets count FSM steps: rows ``< long_rows`` get ``steps_long`` and the rest
 ``steps_short``, each rounded up to a multiple of the chunk as the
 Pallas launch does; a row not in ST_DONE when its budget runs out
 errors its lane.
@@ -64,11 +74,24 @@ MB_STALE, MB_SKIP, MB_INTER, MB_INTRA = 0, 1, 2, 3
 LUT_BASES = dict(MBADDR=0, MBTYPE_I=2048, MBTYPE_P=2112, CBP=2176,
                  MOTION=2688, DC_LUM=4736, DC_CHROM=4992,
                  DCT_FIRST=5248, DCT_NEXT=5248 + 131072)
-MAX_MB_WIDTH = 64       # csrc/scan.cu keeps per-MB record sums local
+# the widest picture csrc/compose.cu takes (it sizes per-MB-row arrays
+# by it); the scan kernels have no such limit
+MAX_MB_WIDTH = 64
+
+# the compact LUT of csrc/scan.cu: the unified LUT's non-DCT sections as
+# they are, then each DCT section's first level (indexed by the top
+# DCT_L1_BITS of the 17-bit peek), then the second levels; a first-level
+# entry with LUT_L2 set holds the offset of its 256-entry second level
+DCT_L1_BITS = 9
+COMPACT_BASES = dict(DCT_FIRST=5248, DCT_NEXT=5248 + (1 << DCT_L1_BITS))
+LUT_L2 = 1 << 30
+
+# how a slice ended in K1S's per-slice pass (csrc/scan.cu END_*)
+END_CLEAN, END_ERROR, END_CUT = 0, 1, 2
 
 launches = 0            # K1 launches (counted by the CUDA path only)
 launches_flat = 0       # K1F launches (counted by the CUDA path only)
-launches_seq = 0        # K1S launches (counted by the CUDA path only)
+launches_seq = 0        # K1S launches, two a run_scan call (CUDA path only)
 
 
 def _hdr_to_unified(lut: np.ndarray) -> np.ndarray:
@@ -109,6 +132,112 @@ def _mega_lut_np():
         arrs.append(arr.astype(np.int32))
         offset += len(arr)
     return np.concatenate(arrs), bases, bits
+
+
+@functools.cache
+def _compact_layout():
+    """Where each slot of the compact LUT comes from: (src int64[C], fixed
+    int32[C]) with compact[i] = lut[src[i]] where src[i] >= 0, else
+    fixed[i] (a first-level slot's LUT_L2 | offset of its second level,
+    or padding).  The layout is the MPEG-1 tables': a first-level slot
+    whose 256 DCT codes in the unified LUT (_mega_lut_np) all decode
+    alike takes the first of them, each of the 16 other slots of a DCT
+    section points at a copy of its 256 entries.  C is a multiple of 4
+    (the kernels copy the table in 16-byte words)."""
+    lut, bases, bits = _mega_lut_np()
+    assert not (lut & LUT_L2).any()
+    n_head = bases["DCT_FIRST"]
+    assert n_head == COMPACT_BASES["DCT_FIRST"]
+    lo_bits = bits["DCT_FIRST"] - DCT_L1_BITS
+    head = np.arange(n_head)
+    firsts, seconds = [], []
+    offset = n_head + 2 * (1 << DCT_L1_BITS)
+    for name in ("DCT_FIRST", "DCT_NEXT"):
+        rows = bases[name] + (np.arange(1 << DCT_L1_BITS) << lo_bits)
+        sec = lut[bases[name]:bases[name] + (1 << bits[name])]
+        sec = sec.reshape(1 << DCT_L1_BITS, 1 << lo_bits)
+        first = rows.copy()
+        for i in np.flatnonzero((sec != sec[:, :1]).any(axis=1)):
+            first[i] = -(LUT_L2 | offset)
+            seconds.append(rows[i] + np.arange(1 << lo_bits))
+            offset += 1 << lo_bits
+        firsts.append(first)
+    src = np.concatenate([head] + firsts + seconds)
+    src = np.pad(src, (0, -len(src) % 4), constant_values=-1)
+    fixed = np.where(src < -1, -src, 0).astype(np.int32)
+    return np.where(src < 0, -1, src), fixed
+
+
+@functools.cache
+def compact_lut_np() -> np.ndarray:
+    """The unified LUT (_mega_lut_np) in the two-level form the scan
+    kernels keep in shared memory: 14,464 int32 (57 KB) against
+    267,392."""
+    src, fixed = _compact_layout()
+    return np.where(src >= 0, _mega_lut_np()[0][np.maximum(src, 0)], fixed)
+
+
+@functools.cache
+def _layout_on(device: torch.device):
+    """_compact_layout on `device`, uploaded once."""
+    return tuple(torch.from_numpy(a).to(device) for a in _compact_layout())
+
+
+# compact_lut's results, by (device, data_ptr, version) of the unified
+# LUT they came from; an entry holds that tensor, so its storage (and
+# data_ptr) stays its own while the entry lives
+_compact_cache: dict = {}
+
+
+def compact_lut(lut: torch.Tensor) -> torch.Tensor:
+    """The compact LUT of the scan kernels, gathered on lut's device from
+    the unified LUT `lut` by _compact_layout (no host sync); kept while
+    `lut` is not changed in place.  Exact for any unified LUT whose DCT
+    sections vary within a first-level slot only where the MPEG-1
+    tables' do (compact_lut(lut) expands back to lut: the CPU tests)."""
+    key = (lut.device, lut.data_ptr(), lut._version)
+    hit = _compact_cache.get(key)
+    if hit is None:
+        src, fixed = _layout_on(lut.device)
+        out = torch.where(src >= 0, lut[src.clamp(min=0)], fixed)
+        if len(_compact_cache) >= 8:
+            _compact_cache.clear()
+        hit = _compact_cache[key] = (lut, out.contiguous())
+    return hit[1]
+
+
+def _kernel_tables(lut, zigzag, device):
+    """Check the wrappers' lut (the unified LUT) and zigzag; return the
+    compact form of `lut` (compact_lut) that the kernels read."""
+    from espflix_tpu_torch import build
+
+    full, bases, _ = _mega_lut_np()
+    if bases != LUT_BASES:
+        raise RuntimeError(f"LUT layout changed: {bases}")
+    build.check(lut, device, torch.int32, full.shape)
+    build.check(zigzag, device, torch.int32, (64,))
+    return compact_lut(lut)
+
+
+SCAN_KERNELS = ("scan_dense_kernel", "scan_flat_kernel",
+                "scan_slices_kernel", "scan_seq_kernel")
+
+
+def kernel_resources() -> dict:
+    """Registers, local (stack) bytes, static shared bytes and the
+    largest block of each scan kernel (csrc/scan.cu esp_scan_resources,
+    cudaFuncGetAttributes on the library's current device)."""
+    import ctypes
+
+    from espflix_tpu_torch import build
+    out = (ctypes.c_int * (4 * len(SCAN_KERNELS)))()
+    rc = build.library().esp_scan_resources(out)
+    if rc != 0:
+        raise RuntimeError(f"esp_scan_resources: CUDA error {rc}")
+    keys = ("registers", "local_bytes", "static_shared_bytes",
+            "max_threads")
+    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i, name in enumerate(SCAN_KERNELS)}
 
 
 @functools.cache
@@ -694,14 +823,10 @@ def run_scan_bucketed_dense(
 
     _check_rows(words, start_bits, rows, alive, pic_type, full_pel,
                 r_size, lane_of_row, perm, n_lanes, mb_height, long_rows)
-    _, bases, _ = _mega_lut_np()
-    if bases != LUT_BASES:
-        raise RuntimeError(f"LUT layout changed: {bases}")
-    if mb_width > MAX_MB_WIDTH:
-        raise ValueError(f"mb_width {mb_width} > {MAX_MB_WIDTH}")
     dev = words.device
-    for t in args + (lut, zigzag):
+    for t in args:
         build.check(t, dev, torch.int32)
+    clut = _kernel_tables(lut, zigzag, dev)
     NS, Wp = words.shape
     mb_count = mb_width * mb_height
     BL = mb_count * 6
@@ -713,9 +838,10 @@ def run_scan_bucketed_dense(
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     build.launch(
         "esp_scan_dense", words, start_bits, rows, alive, pic_type,
-        full_pel, r_size, lane_of_row, perm, lut, zigzag, coeffs_T, recs,
+        full_pel, r_size, lane_of_row, perm, clut, zigzag, coeffs_T, recs,
         nfinal, err, iters, NS, Wp, n_lanes, mb_width, mb_height,
-        long_rows, _budget(steps_long, chunk), _budget(steps_short, chunk))
+        long_rows, _budget(steps_long, chunk), _budget(steps_short, chunk),
+        clut.numel())
     launches += 1
     return coeffs_T, recs, nfinal, err, iters
 
@@ -810,12 +936,10 @@ def run_scan_bucketed(
     from espflix_tpu_torch import build
 
     _check_flat_rows(*args, long_rows)
-    _, bases, _ = _mega_lut_np()
-    if bases != LUT_BASES:
-        raise RuntimeError(f"LUT layout changed: {bases}")
     dev = words.device
-    for t in args + (lut, zigzag):
+    for t in args:
         build.check(t, dev, torch.int32)
+    clut = _kernel_tables(lut, zigzag, dev)
     NS, Wp = words.shape
     mb_count = mb_width * mb_height
     coeffs = torch.zeros((n_lanes, mb_count * 384), dtype=torch.int16,
@@ -826,9 +950,10 @@ def run_scan_bucketed(
     err = torch.zeros(n_lanes, dtype=torch.bool, device=dev)
     iters = torch.zeros((), dtype=torch.int32, device=dev)
     build.launch(
-        "esp_scan_flat", *args, lut, zigzag, coeffs, recs, nfinal, err,
+        "esp_scan_flat", *args, clut, zigzag, coeffs, recs, nfinal, err,
         iters, NS, Wp, mb_width, mb_height, long_rows,
-        _budget(steps_long, chunk), _budget(steps_short, chunk))
+        _budget(steps_long, chunk), _budget(steps_short, chunk),
+        clut.numel())
     launches_flat += 1
     return coeffs, recs, nfinal, err, iters
 
@@ -848,15 +973,26 @@ def _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
         assert t.shape == (N,), t.shape
 
 
-def run_scan_torch(words, slice_starts, slice_rows, n_slices, pic_type,
-                   full_pel, r_size, *, mb_width: int, mb_height: int,
-                   max_steps: int, max_symbols: int = 20000, lut, zigzag):
-    """Plain form of K1S: the lockstep FSM over the lanes, every lane
-    walking its slices, each step's emissions set into one [N, C1]
+def _emission_mb(idx, mb_count: int):
+    """The MB index of an emission into the [recs | nfinal | coeffs |
+    trash] buffer, -1 for the trash slot."""
+    MB7 = mb_count * 7
+    return torch.where(
+        idx < mb_count, idx, torch.where(
+            idx < MB7, (idx - mb_count) // 6, torch.where(
+                idx < MB7 + mb_count * 384, (idx - MB7) // 384, -1)))
+
+
+def _scan_lanes_torch(words, slice_starts, slice_rows, n_slices, pic_type,
+                      full_pel, r_size, *, mb_width: int, mb_height: int,
+                      budget: int, lut, zigzag, track_mbs: bool = False):
+    """The lockstep FSM over the lanes, every lane walking its slices for
+    at most `budget` steps, each step's emissions set into one [N, C1]
     buffer laid out [recs | nfinal | coeffs | trash] as the JAX scan's
-    bulk scatter.  Same returns as run_scan."""
-    _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
-               full_pel, r_size)
+    bulk scatter.  Returns (coeffs, recs, nfinal, final state, steps
+    int32[N], lo, hi int32[N]): lo / hi the lowest and highest MB index
+    each lane emitted into (mb_count / -1 without emissions), tracked
+    only when track_mbs."""
     N = words.shape[0]
     dev = words.device
     mb_count = mb_width * mb_height
@@ -866,9 +1002,11 @@ def run_scan_torch(words, slice_starts, slice_rows, n_slices, pic_type,
     st = initial_state_seq(slice_starts, slice_rows, n_slices, pic_type,
                            full_pel, r_size)
     steps = torch.zeros(N, dtype=torch.int32, device=dev)
+    lo = torch.full((N,), mb_count, dtype=torch.int32, device=dev)
+    hi = torch.full((N,), -1, dtype=torch.int32, device=dev)
     buf = torch.zeros(N * C1, dtype=torch.int32, device=dev)
     base = torch.arange(N, device=dev) * C1
-    for _ in range(min(max_steps, max_symbols)):
+    for _ in range(budget):
         live = st["state"] != ST_DONE
         if not bool(live.any()):
             break
@@ -877,12 +1015,177 @@ def run_scan_torch(words, slice_starts, slice_rows, n_slices, pic_type,
                                mb_width=mb_width, mb_count=mb_count,
                                live=live, past_word=PAST_WORD)
         buf[base + i1.long()] = v1
+        if track_mbs:
+            mi = _emission_mb(i1, mb_count)
+            lo = torch.where(mi >= 0, torch.minimum(lo, mi), lo)
+            hi = torch.maximum(hi, mi)
     buf = buf.reshape(N, C1)
-    err = st["error"] | (st["state"] != ST_DONE)
     return (wrap16(buf[:, mb_count + MB6:C1 - 1]),
             buf[:, :mb_count].contiguous(),
-            buf[:, mb_count:mb_count + MB6].contiguous(), err,
-            steps.max().to(torch.int32))
+            buf[:, mb_count:mb_count + MB6].contiguous(), st, steps, lo, hi)
+
+
+def run_scan_torch(words, slice_starts, slice_rows, n_slices, pic_type,
+                   full_pel, r_size, *, mb_width: int, mb_height: int,
+                   max_steps: int, max_symbols: int = 20000, lut, zigzag):
+    """Plain form of K1S: the lockstep FSM over the lanes, every lane
+    walking its slices, each step's emissions set into one buffer as the
+    JAX scan's bulk scatter.  Same returns as run_scan."""
+    _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
+               full_pel, r_size)
+    coeffs, recs, nfinal, st, steps, _lo, _hi = _scan_lanes_torch(
+        words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+        r_size, mb_width=mb_width, mb_height=mb_height,
+        budget=min(max_steps, max_symbols), lut=lut, zigzag=zigzag)
+    err = st["error"] | (st["state"] != ST_DONE)
+    return coeffs, recs, nfinal, err, steps.max().to(torch.int32)
+
+
+def scan_slices_torch(words, slice_starts, slice_rows, n_slices, pic_type,
+                      full_pel, r_size, *, mb_width: int, mb_height: int,
+                      budget: int, lut, zigzag):
+    """Plain form of K1S's per-slice pass: each (lane, slice) scanned
+    alone from its start bit for at most `budget` steps, as the lockstep
+    scan of a one-slice picture.  Returns the pairs' (coeffs, recs,
+    nfinal) with pair lane * S + k on the first axis, and steps / end /
+    lo / hi int32[N, S] as csrc/scan.cu scan_slices_kernel reports them
+    (dead pairs, k >= n_slices: 0 steps, END_CLEAN, lo = mb_count, hi =
+    -1)."""
+    _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
+               full_pel, r_size)
+    N, S = slice_starts.shape
+    k = torch.arange(S, device=words.device)
+    live = (k[None, :] < n_slices[:, None]).reshape(-1).to(torch.int32)
+
+    def rep(t):
+        return t.repeat_interleave(S, dim=0)
+
+    coeffs, recs, nfinal, st, steps, lo, hi = _scan_lanes_torch(
+        rep(words), slice_starts.reshape(-1, 1), slice_rows.reshape(-1, 1),
+        live, rep(pic_type), rep(full_pel), rep(r_size), mb_width=mb_width,
+        mb_height=mb_height, budget=budget, lut=lut, zigzag=zigzag,
+        track_mbs=True)
+    end = torch.where(st["error"], END_ERROR,
+                      torch.where(st["state"] != ST_DONE, END_CUT, END_CLEAN))
+    return (coeffs, recs, nfinal) + tuple(
+        t.to(torch.int32).reshape(N, S) for t in (steps, end, lo, hi))
+
+
+def resolve_slices(steps, end, lo, hi, n_slices, budget: int):
+    """The sequential scan's outcome from its slices scanned alone (the
+    per-slice pass: scan_slices_cuda on a card, scan_slices_torch
+    plainly): the plain form of the resolution in K1S's second pass
+    (csrc/scan.cu resolve_lane).  steps / end / lo / hi int32[N, S] per
+    (lane, slice); n_slices int32[N]; budget the picture's symbol
+    budget.
+
+    With s_k the steps of slice k and c_k the sum over the slices before
+    it, the sequential scan enters slice k iff every slice before it
+    ended clean and c_k < budget, and runs it to its end iff also c_k +
+    s_k <= budget.  A lane is in error unless all its slices end clean
+    within the budget in all; it took min(budget, c + s) steps through
+    its first slice that did not end clean, else through its last.
+    Returns (err bool[N], lane steps int32[N], redo bool[N]): redo marks
+    the lanes whose slices' own emissions are not the sequential scan's
+    -- a slice it cuts or never enters, or two slices that both run and
+    emit into overlapping MB ranges (only corrupt input does); they are
+    scanned again in order."""
+    N, S = steps.shape
+    dev = steps.device
+    live = torch.arange(S, device=dev)[None, :] < n_slices[:, None]
+    s = torch.where(live, steps, 0).long()
+    clean = ((end == END_CLEAN) | ~live).to(torch.int32)
+    clean_through = torch.cummin(clean, dim=1).values.bool()
+    clean_before = torch.cat([torch.ones_like(clean_through[:, :1]),
+                              clean_through[:, :-1]], dim=1)
+    c = torch.cumsum(s, dim=1) - s
+    runs_out = clean_before & (c + s <= budget)
+    err = ~(clean_through[:, -1] & (s.sum(dim=1) <= budget))
+    lane_steps = (s * clean_before).sum(dim=1).clamp(max=budget)
+    ran = live & (lo <= hi)
+    overlap = (ran[:, :, None] & ran[:, None, :]
+               & (lo[:, :, None] <= hi[:, None, :])
+               & (lo[:, None, :] <= hi[:, :, None])
+               & ~torch.eye(S, dtype=torch.bool, device=dev))
+    redo = (live & ~runs_out).any(dim=1) | overlap.flatten(1).any(dim=1)
+    return err, lane_steps.to(torch.int32), redo
+
+
+def _seq_launch_args(words, slice_starts, slice_rows, n_slices, pic_type,
+                     full_pel, r_size, lut, zigzag):
+    args = (words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+            r_size)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    from espflix_tpu_torch import build
+
+    _check_seq(*args)
+    for t in args:
+        build.check(t, words.device, torch.int32)
+    return args, _kernel_tables(lut, zigzag, words.device)
+
+
+def scan_slices_cuda(words, slice_starts, slice_rows, n_slices, pic_type,
+                     full_pel, r_size, *, mb_width: int, mb_height: int,
+                     budget: int, lut, zigzag):
+    """K1S's first pass on a card (csrc/scan.cu scan_slices_kernel):
+    every (lane, slice) in its own thread, its emissions stored into the
+    lanes' lane-minor buffers.  Inputs as run_scan.  Returns (coeffs
+    int16[N, MB*384], recs int32[N, MB], nfinal int32[N, MB*6], steps,
+    end, lo, hi int32[N, S]); the buffers hold the sequential scan's
+    result on every lane that resolve_slices does not mark for redo."""
+    global launches_seq
+    from espflix_tpu_torch import build
+
+    args, clut = _seq_launch_args(words, slice_starts, slice_rows, n_slices,
+                                  pic_type, full_pel, r_size, lut, zigzag)
+    dev = words.device
+    N, W = words.shape
+    S = slice_starts.shape[1]
+    mb_count = mb_width * mb_height
+    coeffs = torch.zeros((N, mb_count * 384), dtype=torch.int16, device=dev)
+    recs = torch.zeros((N, mb_count), dtype=torch.int32, device=dev)
+    nfinal = torch.zeros((N, mb_count * 6), dtype=torch.int32, device=dev)
+    steps, end, lo, hi = (torch.empty((N, S), dtype=torch.int32, device=dev)
+                          for _ in range(4))
+    build.launch("esp_scan_slices", *args, clut, zigzag, coeffs, recs,
+                 nfinal, steps, end, lo, hi, N, W, S, mb_width, mb_height,
+                 budget, clut.numel())
+    launches_seq += 1
+    return coeffs, recs, nfinal, steps, end, lo, hi
+
+
+def finish_slices_cuda(words, slice_starts, slice_rows, n_slices, pic_type,
+                       full_pel, r_size, coeffs, recs, nfinal, steps, end,
+                       lo, hi, *, mb_width: int, mb_height: int, budget: int,
+                       lut, zigzag):
+    """K1S's second pass on a card (csrc/scan.cu scan_seq_kernel) over
+    scan_slices_cuda's buffers and reports: each lane resolved as
+    resolve_slices does, the lanes marked for redo cleared and scanned
+    again in order, in place.  Returns (coeffs, recs, nfinal, err
+    bool[N], iters int32 scalar, redo bool[N])."""
+    global launches_seq
+    from espflix_tpu_torch import build
+
+    args, clut = _seq_launch_args(words, slice_starts, slice_rows, n_slices,
+                                  pic_type, full_pel, r_size, lut, zigzag)
+    dev = words.device
+    N, W = words.shape
+    S = slice_starts.shape[1]
+    mb_count = mb_width * mb_height
+    build.check(coeffs, dev, torch.int16, (N, mb_count * 384))
+    build.check(recs, dev, torch.int32, (N, mb_count))
+    build.check(nfinal, dev, torch.int32, (N, mb_count * 6))
+    for t in (steps, end, lo, hi):
+        build.check(t, dev, torch.int32, (N, S))
+    err = torch.empty(N, dtype=torch.bool, device=dev)
+    redo = torch.empty(N, dtype=torch.bool, device=dev)
+    iters = torch.zeros((), dtype=torch.int32, device=dev)
+    build.launch("esp_scan_seq", *args, steps, end, lo, hi, clut, zigzag,
+                 coeffs, recs, nfinal, err, redo, iters, N, W, S, mb_width,
+                 mb_height, budget, clut.numel())
+    launches_seq += 1
+    return coeffs, recs, nfinal, err, iters, redo
 
 
 def run_scan(words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
@@ -902,36 +1205,21 @@ def run_scan(words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
     int32[N, MB*6], err bool[N], iters int32 scalar): err is the JAX
     decode's `st["error"] | (st["state"] != ST_DONE)` (an FSM error, or
     a lane still scanning at the budget), iters the most steps any lane
-    took.  CPU tensors take the plain form; CUDA tensors launch K1S
-    (csrc/scan.cu)."""
-    global launches_seq
+    took.  CPU tensors take the plain form (run_scan_torch).  CUDA
+    tensors launch K1S, the same scan split at slice starts: the
+    per-slice pass (scan_slices_cuda, one thread per slice), then the
+    second pass (finish_slices_cuda: each lane resolved from its slices'
+    step counts as resolve_slices does, and the lanes whose slices'
+    emissions are not the sequential scan's re-run in order, one thread
+    a lane, over cleared rows).  No host sync between launch and
+    return."""
     args = (words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
             r_size)
-    kw = dict(mb_width=mb_width, mb_height=mb_height, max_steps=max_steps,
-              max_symbols=max_symbols, lut=lut, zigzag=zigzag)
     if words.device.type == "cpu":
-        return run_scan_torch(*args, **kw)
-    if words.device.type != "cuda":
-        raise ValueError(f"unsupported device {words.device}")
-    from espflix_tpu_torch import build
-
-    _check_seq(*args)
-    _, bases, _ = _mega_lut_np()
-    if bases != LUT_BASES:
-        raise RuntimeError(f"LUT layout changed: {bases}")
-    dev = words.device
-    for t in args + (lut, zigzag):
-        build.check(t, dev, torch.int32)
-    N, W = words.shape
-    S = slice_starts.shape[1]
-    mb_count = mb_width * mb_height
-    coeffs = torch.zeros((N, mb_count * 384), dtype=torch.int16, device=dev)
-    recs = torch.zeros((N, mb_count), dtype=torch.int32, device=dev)
-    nfinal = torch.zeros((N, mb_count * 6), dtype=torch.int32, device=dev)
-    err = torch.zeros(N, dtype=torch.bool, device=dev)
-    iters = torch.zeros((), dtype=torch.int32, device=dev)
-    build.launch("esp_scan_seq", *args, lut, zigzag, coeffs, recs, nfinal,
-                 err, iters, N, W, S, mb_width, mb_height,
-                 min(max_steps, max_symbols))
-    launches_seq += 1
-    return coeffs, recs, nfinal, err, iters
+        return run_scan_torch(*args, mb_width=mb_width, mb_height=mb_height,
+                              max_steps=max_steps, max_symbols=max_symbols,
+                              lut=lut, zigzag=zigzag)
+    kw = dict(mb_width=mb_width, mb_height=mb_height,
+              budget=min(max_steps, max_symbols), lut=lut, zigzag=zigzag)
+    parts = scan_slices_cuda(*args, **kw)
+    return finish_slices_cuda(*args, *parts, **kw)[:5]

@@ -123,6 +123,25 @@ def corrupt_picture():
     return M.parse_es(w.tobytes())[1][0]
 
 
+# a slice body that errors at its first macroblock: quantiser 8, no
+# extra information, address increment 1, then a zero macroblock type
+# code (invalid in I and P pictures)
+BAD_SLICE = 0x42000000
+
+
+def corrupt_slice(batch: dict, lane: int, k: int):
+    """Overwrite 32 bits of `lane`'s words at the start of its slice k
+    with BAD_SLICE, in a make_picture_batch dict (in place): the
+    picture's scan errors in that slice."""
+    bit = int(batch["slice_starts"][lane, k])
+    w = batch["words"]
+    i, off = bit >> 5, bit & 31
+    pair = (int(w[lane, i]) << 32) | int(w[lane, i + 1])
+    shift = 32 - off
+    pair = (pair & ~(0xFFFFFFFF << shift)) | (BAD_SLICE << shift)
+    w[lane, i], w[lane, i + 1] = pair >> 32, pair & 0xFFFFFFFF
+
+
 @dataclass
 class ScenarioStats:
     frames: int = 0

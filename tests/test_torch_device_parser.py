@@ -17,6 +17,8 @@ picture, two ticks and a run_chunk of two -- every TickResult field,
 the carries, the sessions and the events.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,8 @@ import torch
 from espflix_tpu_torch.models import mpeg1 as TM
 from espflix_tpu_torch.ops import vlc_scan as TVS
 from espflix_tpu_torch.tools import mpeg1_encode as TE
-from espflix_tpu_torch.tools.serve_scenario import corrupt_picture
+from espflix_tpu_torch.tools.serve_scenario import corrupt_picture, \
+    corrupt_slice
 
 try:
     import jax.numpy as jnp
@@ -171,22 +174,48 @@ def test_slice_parallel_is_not_ported():
 @pytest.mark.gpu
 def test_seq_kernel_matches_plain_on_card():
     """K1S against its plain form on the card: clean pictures, an idle
-    lane, the corrupt picture and a budget cut."""
+    lane, the corrupt picture, a corrupt slice in the middle of a
+    picture, two slices on one MB row, and budgets that cut lanes inside
+    slice 0 and inside a later slice; then the reports of its per-slice
+    pass against scan_slices_torch, and its second pass's resolution
+    against resolve_slices."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     pics = _pictures(6, width=352, height=192, n_pictures=2)
-    b = TM.make_picture_batch(pics + [None, corrupt_picture()],
-                              max_slices=12)
-    for ms in (12000, 700):
+    p = pics[0]
+    dup = dataclasses.replace(
+        p, slice_offsets=[p.slice_offsets[0]] + p.slice_offsets,
+        slice_rows=[p.slice_rows[0]] + p.slice_rows)
+    b = TM.make_picture_batch(pics + [None, corrupt_picture(), p, dup],
+                              max_slices=13)
+    corrupt_slice(b, 4, 5)
+    kw = dict(mb_width=22, mb_height=12)
+    for ms in (12000, 3000, 700):
         outs = []
         for dev in ("cpu", "cuda"):
             tables = TM.decode_tables(dev)
             x = TM.xs_to_torch({k: b[k] for k in KEYS}, dev)
             outs.append([t.cpu() for t in TVS.run_scan(
-                *x.values(), mb_width=22, mb_height=12, max_steps=ms,
-                lut=tables["lut"], zigzag=tables["zigzag"])])
+                *x.values(), max_steps=ms, lut=tables["lut"],
+                zigzag=tables["zigzag"], **kw)])
         for a, c in zip(*outs):
-            assert torch.equal(a, c)
+            assert torch.equal(a, c), ms
+    counts = []
+    for dev, fn in (("cpu", TVS.scan_slices_torch),
+                    ("cuda", TVS.scan_slices_cuda)):
+        tables = TM.decode_tables(dev)
+        x = TM.xs_to_torch({k: b[k] for k in KEYS}, dev)
+        kwd = dict(kw, budget=3000, lut=tables["lut"],
+                   zigzag=tables["zigzag"])
+        parts = fn(*x.values(), **kwd)
+        counts.append([t.cpu() for t in parts[3:]])
+    for a, c in zip(*counts):
+        assert torch.equal(a, c)
+    err, lane_steps, redo = TVS.resolve_slices(*counts[0], x["n_slices"].cpu(),
+                                               3000)
+    fin = TVS.finish_slices_cuda(*x.values(), *parts, **kwd)
+    assert torch.equal(fin[3].cpu(), err) and torch.equal(fin[5].cpu(), redo)
+    assert int(fin[4]) == int(lane_steps.max()) and redo.any()
 
 
 # ---- Fleet(parser="device") ----------------------------------------------
