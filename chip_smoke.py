@@ -14,18 +14,22 @@ line is printed):
    nvcc per source, all at once, and the sessions' native TS demuxer;
    prints each scan kernel's registers, local (stack) bytes and static
    shared bytes (cudaFuncGetAttributes);
-3. kernels: each of the ten entry points -- K1-K5, the lane-minor
+3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
-   B over a band) and the sequential scan K1S -- against its plain
-   PyTorch version on the card at the main path's shapes (the bench
-   tick's 1,024 lanes at 352x192), exact equality, CUDA-event medians,
+   B over a band), the sequential scan K1S and the SBC decode K6 --
+   against its plain PyTorch version on the card at the main path's
+   shapes (the bench tick's 1,024 lanes at 352x192 and 13 SBC frames a
+   lane; K6 also on varied mono and stereo audio: random bitpools
+   padded to one length, error frames, bitpool 250, n_valid 0 and
+   partial, idle lanes, a random carried history, two calls), exact
+   equality, CUDA-event medians,
    the call's latency (`ms`) and the device's time alone
    (`device_ms`), and the bound of its work (for the scans the larger
    of bytes and the longest row's or slice's FSM chain); K1S's two
    passes alone (the second's resolution against its plain form,
    resolve_slices) and a second K1S call with corrupt slices, idle
    lanes and a budget that cuts lanes inside a later slice, which
-   reports the lanes of its in-order pass;
+   reports the lanes of its in-order pass; K5's cycles a bit step;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -45,7 +49,7 @@ line is printed):
    HTTP service at the same lanes, 16 ticks pipelined (tick_submit /
    tick_collect) and 16 chunked (run_chunk, K = 4), two injected faults
    each: every lane decodes, the faults are resynced, and K1, K2, K3,
-   K1F, K2F and K3F all launched; then 4 ticks per dispatch, and 4 of
+   K1F, K2F, K3F and K6 all launched; then 4 ticks per dispatch, and 4 of
    a one-lane fleet (the small-fleet branch), through the kernels and
    through the plain forms: every TickResult field and carry identical;
 8. the mesh: a 4-shard 'streams' mesh (one card per shard when four
@@ -62,7 +66,7 @@ line is printed):
    to the unsharded band form through the plain forms on a P picture;
    K3P and K1S launched;
 9. the total seconds, the card's name and power limit, one JSON line
-   with the kernels' numbers (launches: serving A's for K1-K5, the
+   with the kernels' numbers (launches: serving A's for K1-K6, the
    decode-only serving's for K1F-K3F, the mesh phase's for K3P and
    K1S), and the final {"ok": true, ...} line.
 
@@ -89,6 +93,14 @@ HBM_BPS = 3.35e12
 # latency of one dependent 32-bit integer operation, in SM clock
 # cycles (an assumption of the K5 and scan bounds; see PERF.md)
 INT_DEP_CYCLES = 4
+# 32-bit integer operations an SM issues a clock (an H100 SM's four
+# partitions of 16 INT32 lanes), for K6's operations bound
+INT32_OPS_PER_SM_CLOCK = 64
+# K6's operations a valid (frame, channel), a lower bound: the
+# filterbank's multiply-adds (V: 16 blocks x 16 x 8; synthesis: 128
+# samples x 10 taps) and 8 a field for the unpack (128 fields); the
+# allocation loop and IQUANT's divisions are not counted
+SBC_OPS_PER_FRAME_CH = 16 * 16 * 8 + 128 * 10 + 128 * 8
 # one step of the scan kernels' FSM chain: a shared-memory table load
 # (SMEM_LOAD_CYCLES, an assumption) and about ten dependent integer ops
 SMEM_LOAD_CYCLES = 30
@@ -178,6 +190,7 @@ def require_equal(name, pairs):
 def plain_forms():
     """Route the kernel wrappers to their plain PyTorch versions (for
     the on-card comparison runs)."""
+    from espflix_tpu_torch.models import sbc as dsbc
     from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
@@ -194,7 +207,9 @@ def plain_forms():
              (IDCT, "block_residuals_flat", IDCT.block_residuals_flat_torch),
              (MC, "predict_compose_put_flat",
               MC.predict_compose_put_flat_torch),
-             (MC, "predict_plane_rows", MC.predict_plane_rows_torch)]
+             (MC, "predict_plane_rows", MC.predict_plane_rows_torch),
+             (dsbc, "decode_frames_batched",
+              dsbc.decode_frames_batched_torch)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -300,6 +315,7 @@ def record_results(fleet, method: str = "run_chunk_full") -> list:
 
 def kernel_counters() -> dict:
     """Kernel name -> (wrapper module, its launch-count attribute)."""
+    from espflix_tpu_torch.models import sbc as dsbc
     from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
@@ -314,16 +330,18 @@ def kernel_counters() -> dict:
             "K2F_dequant_idct_flat": (IDCT, "launches_flat"),
             "K3F_predict_compose_put_flat": (MC, "launches_flat"),
             "K3P_predict": (MC, "launches_predict"),
-            "K1S_slice_scan_seq": (VS, "launches_seq")}
+            "K1S_slice_scan_seq": (VS, "launches_seq"),
+            "K6_sbc_decode": (dsbc, "launches")}
 
 
 CHAIN_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
                  "K3_predict_compose_put", "K4_composite_field_pair",
-                 "K5_pdm")
+                 "K6_sbc_decode", "K5_pdm")
+FLAT_KERNELS = ("K1F_slice_scan_flat", "K2F_dequant_idct_flat",
+                "K3F_predict_compose_put_flat")
 DECODE_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
-                  "K3_predict_compose_put", "K1F_slice_scan_flat",
-                  "K2F_dequant_idct_flat", "K3F_predict_compose_put_flat")
-FLAT_KERNELS = DECODE_KERNELS[3:]
+                  "K3_predict_compose_put") + FLAT_KERNELS + (
+                      "K6_sbc_decode",)
 MESH_PALLAS_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
                        "K3P_predict")
 MESH_DEVICE_KERNELS = ("K1S_slice_scan_seq", "K2F_dequant_idct_flat",
@@ -489,6 +507,100 @@ def serve_phase_b(dev, url: str, lanes: int, ticks: int = 8,
         f"service): kernel path == plain path ({n_cmp} TickResult fields "
         f"+ 6 carries; {frames} frames, {errors} lane errors, taps "
         f"{tap_lanes})")
+
+
+def sbc_varied(seed: int, N: int, F: int, channels: int, dev):
+    """Varied SBC input for K6, on the card: frames drawn from a pool of
+    random frames (bitpools 2-63, SNR or loudness allocation, padded to
+    one length; a few of the other channel count), every sampling
+    frequency, ~3% broken sync words and ~3% bitpool 250 (the unpack runs
+    past the buffer), n_valid full / partial / 0, ~1/16 idle lanes and a
+    random history.  Returns (words, hist, active, n_valid)."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.models import sbc as dsbc
+    from espflix_tpu_torch.tools.sbc_encode import random_frame
+
+    rng = np.random.default_rng(seed)
+    mode = 0 if channels == 1 else 2
+    pool = [random_frame(rng, mode=mode, bitpool=int(rng.integers(2, 64)),
+                         allocation=int(rng.random() < 0.3))
+            for _ in range(60)]
+    pool += [random_frame(rng, mode=2 - mode, bitpool=8) for _ in range(4)]
+    bank = np.zeros((len(pool), max(len(f) for f in pool)), np.uint8)
+    for i, f in enumerate(pool):
+        bank[i, :len(f)] = np.frombuffer(f, np.uint8)
+    fr = bank[rng.integers(0, len(pool), (N, F))]
+    fr[:, :, 1] = (fr[:, :, 1] & 0x3F) | \
+        (rng.integers(0, 4, (N, F)) << 6).astype(np.uint8)
+    fr[rng.random((N, F)) < 0.03, 0] = 0
+    fr[rng.random((N, F)) < 0.03, 2] = 250
+    n_valid = rng.integers(0, F + 1, N).astype(np.int32)
+    n_valid[::7] = F
+    n_valid[3::11] = 0
+    active = rng.random(N) >= 1 / 16
+    hist = rng.integers(-30000, 30000, (N, 2, 10, 16)).astype(np.int32)
+    words = dsbc.frames_to_words(fr).view(np.int32)
+    return tuple(torch.from_numpy(a).to(dev)
+                 for a in (words, hist, active, n_valid))
+
+
+def sbc_kernel(x, F: int, dev, reps: int, clock_hz: float):
+    """K6 against its plain form on the bench tick's audio (x: 13 mono
+    frames a lane, the chain's call) and on sbc_varied's mono and stereo
+    audio over two calls with the history carried; returns (K6's kernel
+    entry, the tick's PCM)."""
+    import torch
+    from espflix_tpu_torch.models import sbc as dsbc
+
+    N = x["aud_words"].shape[0]
+    args = (x["aud_words"], dsbc.init_state(N, dev))
+    kw = dict(active=x["aud_act"], n_valid=x["aud_nval"], n_frames=F,
+              channels=1)
+    got = dsbc.decode_frames_batched(*args, **kw)
+    err = require_equal("K6 sbc (bench tick)", zip(
+        got, dsbc.decode_frames_batched_torch(*args, **kw)))
+    if got[2].any():
+        raise AssertionError("K6: error frames in the bench tick's audio")
+    checked = 0
+    for channels in (1, 2):
+        w, h_k, act, nv = sbc_varied(40 + channels, N, F, channels, dev)
+        h_p = h_k
+        for call in range(2):
+            wc = w if call == 0 else w.roll(1, dims=1).contiguous()
+            vk = dsbc.decode_frames_batched(wc, h_k, act, nv, n_frames=F,
+                                            channels=channels)
+            vp = dsbc.decode_frames_batched_torch(wc, h_p, act, nv,
+                                                  n_frames=F,
+                                                  channels=channels)
+            err = max(err, require_equal(
+                f"K6 sbc (varied, {channels} ch, call {call})", zip(vk, vp)))
+            if not vk[2].any() or not (vk[0] != 0).any():
+                raise AssertionError("K6 varied: no error frame or no PCM")
+            h_k, h_p = vk[1], vp[1]
+            checked += int(vk[2].sum())
+    entry = dict(
+        name="K6_sbc_decode", route="cuda",
+        source="espflix_tpu_torch/csrc/sbc.cu",
+        replaces="espflix_tpu/models/sbc.py:136 (XLA decode_frames_batched;"
+                 " no Pallas kernel)",
+        max_abs_err=err, library_ms=None,
+        **timed(lambda: dsbc.decode_frames_batched(*args, **kw), reps),
+        plain_ms=time_ms(lambda: dsbc.decode_frames_batched_torch(
+            *args, **kw), reps))
+    # operations: this call's valid (frame, channel) pairs -- in n_valid,
+    # on an active lane, not in error -- at SBC_OPS_PER_FRAME_CH each
+    in_n = torch.arange(F, device=dev)[None, :] < x["aud_nval"][:, None]
+    n_valid_fc = int((in_n & x["aud_act"][:, None]).sum()) - \
+        int(got[2].sum())
+    rate = (torch.cuda.get_device_properties(dev).multi_processor_count
+            * INT32_OPS_PER_SM_CLOCK * clock_hz)
+    entry["bound_ms"], entry["bound_by"] = bound(
+        nbytes(*args, kw["active"], kw["n_valid"], *got),
+        n_valid_fc * SBC_OPS_PER_FRAME_CH / rate * 1e3)
+    log(f"[kernel] {entry} ({n_valid_fc} valid frames; varied mono and "
+        f"stereo audio exact over two calls, {checked} error frames)")
+    return entry, got[0]
 
 
 def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
@@ -1251,13 +1363,14 @@ def main() -> int:
         *comp_args, chain.templates, chain.dither, *ck))
     log(f"[kernel] {kernels[-1]}")
 
+    # K6 on the tick's 13 SBC frames a lane, then on varied audio
+    entry, pcm = sbc_kernel(x, kw["n_aud_frames"], dev, args.reps,
+                            sm_clock_hz)
+    kernels.append(entry)
+
     # K5 on the tick's decoded SBC PCM (1,664 samples a lane) from a
     # random carried state, and on full-scale square waves
     S = kw["n_aud_frames"] * 128
-    pcm, _h, _e, _b = dsbc.decode_frames_batched(
-        x["aud_words"], dsbc.init_state(N, dev), active=x["aud_act"],
-        n_valid=x["aud_nval"], n_frames=kw["n_aud_frames"], channels=1,
-        syn=chain.sbc_syn, proto=chain.sbc_proto)
     pcm = pcm[:, :S].contiguous()
     st = torch.randint(-2_000_000, 2_000_000, (N, 3), generator=g,
                        dtype=torch.int32).to(dev)
@@ -1280,11 +1393,13 @@ def main() -> int:
         **timed(lambda: DS.modulate(pcm, st, n_samples=S), args.reps),
         plain_ms=pdm_plain_ms[0]))
     # each lane is one chain of 2 * 16 * S bit steps, each three
-    # dependent integer operations (shift, add into i1, add into i2)
+    # dependent integer operations (shift, and / sub, add into i2)
     steps = 2 * 16 * S
     kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
         nbytes(pcm, st, *DS.modulate(pcm, st, n_samples=S)),
         steps * 3 * INT_DEP_CYCLES / sm_clock_hz * 1e3)
+    kernels[-1]["cycles_per_step"] = \
+        kernels[-1]["device_ms"] * 1e-3 * sm_clock_hz / steps
     log(f"[kernel] {kernels[-1]} (chain of {steps} steps at "
         f"{sm_clock_hz / 1e6:.0f} MHz)")
 

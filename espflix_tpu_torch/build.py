@@ -43,6 +43,7 @@ SIGNATURES = {
     "esp_predict": "p" * 4 + "i" * 8,
     "esp_composite_parts": "p" * 12 + "i" * 7,
     "esp_pdm": "p" * 4 + "i" * 2,
+    "esp_sbc_decode": "p" * 11 + "i" * 4,
 }
 
 _lib = None

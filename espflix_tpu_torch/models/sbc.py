@@ -7,6 +7,10 @@ compacted out of the timeline.  Every product and sum is int32 with
 wraparound, as in the JAX package (no int64 before the >> 15 and the
 clip).  PCM layout: per frame, all of channel 0's 128 samples precede
 channel 1's.
+
+``decode_frames_batched`` launches K6 (csrc/sbc.cu, one block per lane)
+on CUDA tensors; ``decode_frames_batched_torch`` is its plain form (a
+few hundred small torch ops a call), taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,7 +18,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from espflix_tpu_torch.core import sbc_tables as ST
 from espflix_tpu_torch.ops import sbc_ops
 
 BLOCKS = 16
@@ -22,6 +25,10 @@ SUBBANDS = 8
 PCM_PER_FRAME = BLOCKS * SUBBANDS  # 128 per channel
 HIST = 10                          # V-history depth (past blocks)
 assert BLOCKS >= HIST              # the history tail lives in one frame
+# the shared memory one K6 block may take (an H100's 227 KB)
+MAX_SHARED_BYTES = 232_448
+
+launches = 0            # K6 launches (counted by the CUDA path only)
 
 
 def init_state(n_lanes: int, device):
@@ -108,18 +115,93 @@ def decode_frames_batched(words, hist, active=None, n_valid=None, *,
     int32[N] valid frame count; later frames are padding (no state
     update, zero PCM, no error).  Error frames do not touch the
     V-history.  syn/proto: SYN_8 / PROTO_8 as int32 on the device
-    (made here when omitted).
+    (cached per device when omitted).
 
     Returns (pcm int16[N, F*channels*128], new_hist, error bool[N, F],
-    frame_bits int32[N, F])."""
+    frame_bits int32[N, F]).  CPU tensors take the plain form; CUDA
+    tensors launch K6 (csrc/sbc.cu), which writes fresh outputs and
+    never the caller's hist."""
+    if words.device.type == "cpu":
+        return decode_frames_batched_torch(
+            words, hist, active, n_valid, n_frames=n_frames,
+            channels=channels, syn=syn, proto=proto)
+    if words.device.type != "cuda":
+        raise ValueError(f"unsupported device {words.device}")
+    return _decode_cuda(words, hist, active, n_valid, n_frames=n_frames,
+                        channels=channels, syn=syn, proto=proto)
+
+
+def shared_bytes(n_frames: int, channels: int) -> int:
+    """Dynamic shared memory of one K6 block (csrc/sbc.cu's layout): V
+    [F][16][CH][16], bits / scale factors / offsets [F][CH][8], four
+    per-frame words, the history and the three tables."""
+    F, CH = n_frames, channels
+    ints = (F * BLOCKS * CH * 16 + 3 * F * CH * SUBBANDS + 4 * F
+            + CH * HIST * 16 + 16 * 8 + 8 * 10 + 4 * 8 + 4)
+    return 4 * ints
+
+
+def _decode_cuda(words, hist, active, n_valid, *, n_frames: int,
+                 channels: int, syn, proto):
+    """K6: one launch for the whole call (decode_frames_batched's
+    contract)."""
+    global launches
+    from espflix_tpu_torch import build
+
+    N, F, W = words.shape
+    CH = channels
+    if F != n_frames or CH not in (1, 2):
+        raise ValueError(f"{F} frames (n_frames={n_frames}), {CH} channels")
+    if W < CH + 1:
+        raise ValueError(f"{W} words a frame hold no {CH}-channel header")
+    smem = shared_bytes(F, CH)
+    if smem > MAX_SHARED_BYTES:
+        raise ValueError(f"{F} frames of {CH} channels need {smem} bytes "
+                         f"of shared memory a lane; a block has "
+                         f"{MAX_SHARED_BYTES}")
+    dev = words.device
+    if syn is None:
+        syn = sbc_ops.device_table("SYN_8", dev)
+    if proto is None:
+        proto = sbc_ops.device_table("PROTO_8", dev)
+    off8 = sbc_ops.device_table("OFFSET_8", dev)
+    # the kernel takes no null pointers: omitted masks are made here
+    if active is None:
+        active = torch.ones(N, dtype=torch.bool, device=dev)
+    if n_valid is None:
+        n_valid = torch.full((N,), F, dtype=torch.int32, device=dev)
+    words, hist = words.contiguous(), hist.contiguous()
+    active = active.to(torch.bool).contiguous()
+    n_valid = n_valid.to(torch.int32).contiguous()
+    build.check(words, dev, torch.int32, (N, F, W))
+    build.check(hist, dev, torch.int32, (N, 2, HIST, 16))
+    build.check(active, dev, torch.bool, (N,))
+    build.check(n_valid, dev, torch.int32, (N,))
+    build.check(syn, dev, torch.int32, (16, SUBBANDS))
+    build.check(proto, dev, torch.int32, (SUBBANDS, HIST))
+    pcm = torch.empty((N, F * CH * PCM_PER_FRAME), dtype=torch.int16,
+                      device=dev)
+    new_hist = torch.empty_like(hist)
+    error = torch.empty((N, F), dtype=torch.bool, device=dev)
+    frame_bits = torch.empty((N, F), dtype=torch.int32, device=dev)
+    build.launch("esp_sbc_decode", words, hist, active, n_valid, syn, proto,
+                 off8, pcm, new_hist, error, frame_bits, N, F, W, CH)
+    launches += 1
+    return pcm, new_hist, error, frame_bits
+
+
+def decode_frames_batched_torch(words, hist, active=None, n_valid=None, *,
+                                n_frames: int, channels: int = 1, syn=None,
+                                proto=None):
+    """Plain form of K6 (decode_frames_batched's contract)."""
     N, F, W = words.shape
     CH = channels
     assert F == n_frames and CH in (1, 2)
     dev = words.device
     if syn is None:
-        syn = torch.as_tensor(ST.SYN_8, dtype=torch.int32, device=dev)
+        syn = sbc_ops.device_table("SYN_8", dev)
     if proto is None:
-        proto = torch.as_tensor(ST.PROTO_8, dtype=torch.int32, device=dev)
+        proto = sbc_ops.device_table("PROTO_8", dev)
     b0 = _byte(words, 0)
     b1 = _byte(words, 1)
     bitpool = _byte(words, 2)

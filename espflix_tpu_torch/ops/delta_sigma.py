@@ -8,9 +8,10 @@ i2 += i1 -+ a2, bit = i2 >= 0; (i0, i1, i2) carry across calls.  int32
 arithmetic wraps.
 
 ``modulate`` launches K5 (csrc/pdm.cu, one thread per lane with the
-state in registers) on CUDA tensors; ``modulate_torch`` is its plain
-eager recurrence (~2*16*T dependent steps of a few small ops each),
-taken for CPU tensors.
+state in registers; the bit step rewritten so that i2's chain is three
+dependent integer operations, with the same bits) on CUDA tensors;
+``modulate_torch`` is its plain eager recurrence (~2*16*T dependent
+steps of a few small ops each), taken for CPU tensors.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@
 The port of espflix_tpu.ops.sbc_ops: A2DP bit allocation as a
 fixed-trip masked loop, MSB-first bit-field extraction from big-endian
 words, and the exact two-step IQUANT division.  Plain PyTorch: the JAX
-package leaves these stages to XLA, not to a Pallas kernel.
+package leaves these stages to XLA, not to a Pallas kernel.  They are
+the plain form of K6 (csrc/sbc.cu), which models/sbc.py launches on
+CUDA tensors.
 """
 
 from __future__ import annotations
@@ -12,6 +14,19 @@ import torch
 
 from espflix_tpu_torch.core import sbc_tables as T
 from espflix_tpu_torch.ops.intwrap import wrap32
+
+_tables: dict = {}
+
+
+def device_table(name: str, device) -> torch.Tensor:
+    """sbc_tables.<name> (OFFSET_8, SYN_8, PROTO_8) as int32 on `device`,
+    uploaded once per device.  Read-only: callers must not write it."""
+    key = (name, torch.device(device))
+    t = _tables.get(key)
+    if t is None:
+        t = _tables[key] = torch.as_tensor(getattr(T, name),
+                                           dtype=torch.int32, device=device)
+    return t
 
 
 def bit_allocation_batched(sf, bitpool, frequency, allocation,
@@ -22,7 +37,7 @@ def bit_allocation_batched(sf, bitpool, frequency, allocation,
     bitpool/frequency/allocation: int32[...].  Returns bits int32[..., 8].
     """
     i32 = torch.int32
-    off8 = torch.as_tensor(T.OFFSET_8, dtype=i32, device=sf.device)
+    off8 = device_table("OFFSET_8", sf.device)
     off = off8[frequency.long()]                        # [..., 8]
     loud = sf - off
     loud = torch.where(loud > 0, loud >> 1, loud)

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from espflix_tpu_torch.core import sbc_tables as ST
 from espflix_tpu_torch.models import mpeg1 as M
 from espflix_tpu_torch.models.mpeg1 import xs_to_torch  # noqa: F401
 from espflix_tpu_torch.models import sbc as dsbc
@@ -114,8 +113,6 @@ class FullChain(nn.Module):
         buf("scale_dct", IDCT.scale_dct_q("cpu"), torch.int32)
         buf("templates", tmpl, torch.int16)
         buf("dither", dither, torch.int16)
-        buf("sbc_syn", ST.SYN_8, torch.int32)
-        buf("sbc_proto", ST.PROTO_8, torch.int32)
         # long enough for two channels; a call uses its first S samples
         buf("beep", beep_wave(n_aud_frames * 128 * 2), torch.int16)
 
@@ -168,8 +165,7 @@ class FullChain(nn.Module):
         with stage("sbc"):
             pcm, sbc_state, aerr, _ = dsbc.decode_frames_batched(
                 x["aud_words"], sbc_state, active=x["aud_act"],
-                n_valid=x["aud_nval"], n_frames=F, channels=channels,
-                syn=self.sbc_syn, proto=self.sbc_proto)
+                n_valid=x["aud_nval"], n_frames=F, channels=channels)
         with stage("pdm"):
             pdm, ds_state = audio_out(pcm, ds_state, x["beep_left"],
                                       x["aud_act"], x["starved"],

@@ -1,19 +1,23 @@
-"""Time one checkout's scan kernels on the bench's I-heavy tick, for
-comparing two commits on one card.
+"""Time one checkout's kernels on the bench's I-heavy tick, for comparing
+two commits on one card.
 
-    python3 espflix_tpu_torch/tools/scan_ab.py [--tree CHECKOUT] [--label X]
+    python3 espflix_tpu_torch/tools/kernel_ab.py [--tree CHECKOUT] [--label X]
 
 imports espflix_tpu_torch from CHECKOUT (default: the checkout that holds
-this file), builds its kernels, and times K1 (run_scan_bucketed_dense),
-K1F (run_scan_bucketed) and K1S (run_scan) at chip_smoke.py's phase-3
-inputs (1,024 lanes of 352x192), with K2 (block_residuals_T) beside them
-as a control whose code the scan work does not touch.  Each kernel gets
-the median of --reps runs by two rulers: `call_ms`, the call's latency,
-the host's enqueue included (chip_smoke.py's `ms`), and `device_ms`, the
-device's work alone (the card sleeps while the host enqueues), and a
-checksum of its outputs.  Prints one JSON line with the label, the card's
-name and power limit, and those numbers.  Run it for the two checkouts
-in the order A, B, B, A in one session on the card.  Needs a CUDA card.
+this file), builds its kernels, and times, at chip_smoke.py's phase-3
+inputs (1,024 lanes of 352x192): K1 (run_scan_bucketed_dense), K1F
+(run_scan_bucketed) and K1S (run_scan); SBC (models/sbc
+.decode_frames_batched on the tick's 13 audio frames a lane: K6 where
+the checkout has it, else the plain form) and K5 (ops/delta_sigma
+.modulate on that PCM from a seeded random state); with K2
+(block_residuals_T) beside them as a control whose code the other work
+does not touch.  Each gets the median of --reps runs by two rulers:
+`call_ms`, the call's latency, the host's enqueue included (chip_smoke
+.py's `ms`), and `device_ms`, the device's work alone (the card sleeps
+while the host enqueues), and a checksum of its outputs.  Prints one
+JSON line with the label, the card's name and power limit, and those
+numbers.  Run it for the two checkouts in the order A, B, B, A in one
+session on the card.  Needs a CUDA card.
 """
 
 import argparse
@@ -60,12 +64,15 @@ def main() -> int:
 
     import torch
     if not torch.cuda.is_available():
-        raise SystemExit("scan_ab: no CUDA device")
+        raise SystemExit("kernel_ab: no CUDA device")
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
     from espflix_tpu_torch import build
+    from espflix_tpu_torch.core import sbc_tables as ST
     from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.models import sbc as dsbc
+    from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
     from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.runtime import chain as CH
@@ -73,7 +80,7 @@ def main() -> int:
     from espflix_tpu_torch.runtime.workload import (bench_chunk,
                                                     bench_pictures)
     if not VS.__file__.startswith(tree):
-        raise SystemExit(f"scan_ab: imported {VS.__file__}, not {tree}")
+        raise SystemExit(f"kernel_ab: imported {VS.__file__}, not {tree}")
     build.library()
 
     xs_np, kw = bench_chunk(args.lanes)
@@ -111,11 +118,26 @@ def main() -> int:
     k2_args = (coeffs_T, intra_bl, qs_bl, x["intra_q"], x["non_intra_q"],
                nfinal, chain.scale_dct)
 
+    F = kw["n_aud_frames"]
+    sbc_args = (x["aud_words"], dsbc.init_state(N, dev))
+    sbc_kw = dict(active=x["aud_act"], n_valid=x["aud_nval"], n_frames=F,
+                  channels=1, **{k: torch.as_tensor(t, dtype=torch.int32,
+                                                    device=dev)
+                                 for k, t in (("syn", ST.SYN_8),
+                                              ("proto", ST.PROTO_8))})
+    pcm = dsbc.decode_frames_batched(*sbc_args, **sbc_kw)[0]
+    pcm = pcm[:, :F * 128].contiguous()
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ds_state = torch.randint(-2_000_000, 2_000_000, (N, 3), generator=g,
+                             dtype=torch.int32).to(dev)
+
     runs = {
         "K1": lambda: VS.run_scan_bucketed_dense(*k1_args, **k1_kw),
         "K1F": lambda: VS.run_scan_bucketed(*k1f_args, **k1f_kw),
         "K1S": lambda: VS.run_scan(*k1s_args, **k1s_kw),
         "K2": lambda: (IDCT.block_residuals_T(*k2_args),),
+        "SBC": lambda: dsbc.decode_frames_batched(*sbc_args, **sbc_kw),
+        "K5": lambda: DS.modulate(pcm, ds_state, n_samples=F * 128),
     }
     out = {}
     for name, fn in runs.items():
