@@ -12,8 +12,9 @@ line is printed):
    the card's name and power limit (nvidia-smi);
 2. build: compiles espflix_tpu_torch/csrc/*.cu for sm_90a (build/), one
    nvcc per source, all at once, and the sessions' native TS demuxer;
-   prints each scan kernel's registers, local (stack) bytes and static
-   shared bytes (cudaFuncGetAttributes);
+   prints the registers, local (stack) bytes and static shared bytes
+   (cudaFuncGetAttributes) of each scan kernel, of K3 / K3F
+   (compose_put_kernel<false / true>) and of K2F (idct_flat_kernel);
 3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
    B over a band), the sequential scan K1S and the SBC decode K6 --
@@ -25,11 +26,19 @@ line is printed):
    equality, CUDA-event medians,
    the call's latency (`ms`) and the device's time alone
    (`device_ms`), and the bound of its work (for the scans the larger
-   of bytes and the longest row's or slice's FSM chain); K1S's two
+   of bytes and the longest row's or slice's FSM chain; for K2, K2F, K3
+   and K3F the bytes the tick's data needs -- their MB kinds, coded
+   blocks and active lanes -- with the bytes of every input and output
+   beside it as `yardstick_ms`); K1S's two
    passes alone (the second's resolution against its plain form,
    resolve_slices) and a second K1S call with corrupt slices, idle
    lanes and a budget that cuts lanes inside a later slice, which
    reports the lanes of its in-order pass; K5's cycles a bit step;
+   K2F, K3 and K3F also checked and timed on the tick with the fewest I
+   pictures (`<key>_p`), and checked on the tests' shared edge case
+   (espflix_tpu_torch/tools/dense_cases.py, 256 lanes: vectors at and
+   past every edge in every half-pel phase, all MB kinds, int16
+   extremes);
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -376,6 +385,72 @@ def compose_bytes(res, recs, active, frames, presented) -> int:
                    *[frames[k] for k in "yuv"]) + 2 * nbytes(*planes))
 
 
+def ref_window_bytes(mvx, mvy, pred, S: int, W: int, H: int) -> int:
+    """The reference bytes of one plane that the predicted MBs `pred`
+    (bool[N, mbh, mbw]) read under rule A, each byte once: the union of
+    their windows -- origin clip(xh >> 1, 0, W - S), S + 1 taps along a
+    half-pel axis, taps past the plane read 0 -- counted on a 2-D
+    difference array per lane."""
+    import torch
+    n, r, c = pred.nonzero(as_tuple=True)
+    xh = c * 2 * S + mvx[n, r, c]
+    yh = r * 2 * S + mvy[n, r, c]
+    x0 = (xh >> 1).clamp(0, W - S)
+    y0 = (yh >> 1).clamp(0, H - S)
+    x1 = (x0 + S + (xh & 1)).clamp(max=W)
+    y1 = (y0 + S + (yh & 1)).clamp(max=H)
+    diff = torch.zeros(pred.shape[0], H + 1, W + 1, dtype=torch.int32,
+                       device=pred.device)
+    one = torch.ones_like(n, dtype=torch.int32)
+    for ys, xs, sign in ((y0, x0, 1), (y0, x1, -1), (y1, x0, -1),
+                         (y1, x1, 1)):
+        diff.index_put_((n, ys, xs), sign * one, accumulate=True)
+    cover = diff.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32)
+    return int((cover > 0).sum())
+
+
+def compose_needed_bytes(recs, active, mbw: int, mbh: int) -> int:
+    """K3 / K3F: the bytes this tick's data needs (the yardstick
+    compose_bytes counts every input and output whole).  A STALE MB, and
+    every MB of an inactive lane, reads cur and writes the presented
+    plane; an INTRA MB reads its residuals (2 B a pixel) and writes cur
+    and the presented plane; a predicted one (SKIP, INTER) also reads
+    its reference window, each reference byte counted once.  Plus the
+    records of the active lanes, the flags and the parities."""
+    import torch
+    from espflix_tpu_torch.ops import vlc_scan as VS
+
+    N, px = recs.shape[0], 384                 # pixels an MB, y + u + v
+    live = active.bool()[:, None]
+    kind = torch.where(live, recs & 3, VS.MB_STALE)
+    stale = int((kind == VS.MB_STALE).sum())
+    pred = (kind == VS.MB_SKIP) | (kind == VS.MB_INTER)
+    coded = kind.numel() - stale
+    moved = (stale * 2 * px + coded * 4 * px + int(live.sum()) * mbw * mbh
+             * 4 + N * (active.element_size() + 4))
+    pred = pred.view(N, mbh, mbw)
+    mvx = ((((recs >> 7) & 0xFFF) ^ 0x800) - 0x800).view(N, mbh, mbw)
+    mvy = ((((recs >> 19) & 0xFFF) ^ 0x800) - 0x800).view(N, mbh, mbw)
+    W, H = 16 * mbw, 16 * mbh
+    return (moved + ref_window_bytes(mvx, mvy, pred, 16, W, H)
+            + 2 * ref_window_bytes(mvx >> 1, mvy >> 1, pred, 8, W // 2,
+                                   H // 2))
+
+
+def idct_needed_bytes(nfinal, intra_bl, flag_bytes: int) -> int:
+    """K2 / K2F: the bytes this tick's data needs.  Every block's nfinal
+    is read and its 64 residuals written; a coded block reads its 64
+    levels (the DC shortcut, nfinal 1 and not intra, its DC alone); each
+    lane with a coded block reads its two quantiser matrices; the scale
+    table; and `flag_bytes`, the intra flags and qscales the caller's
+    layout reads for the coded blocks."""
+    coded = nfinal > 0
+    dc = (nfinal == 1) & ~intra_bl.bool()
+    return (nfinal.numel() * (4 + 128) + int((coded & ~dc).sum()) * 128
+            + int(dc.sum()) * 2 + int(coded.any(dim=1).sum()) * 512 + 256
+            + flag_bytes)
+
+
 def max_sm_clock_hz() -> float:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -603,12 +678,84 @@ def sbc_kernel(x, F: int, dev, reps: int, clock_hz: float):
     return entry, got[0]
 
 
-def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
+def compose_check(label, fn, plain, res, recs, active, rand_frames,
+                  mbw: int, mbh: int, reps: int):
+    """K3 or K3F (fn) against its plain form on fresh random frames --
+    the presented planes and both frame slots -- then timed.  Returns
+    the kernel's presented planes and its numbers (max_abs_err, ms,
+    device_ms, plain_ms, bound_ms, bound_by)."""
+    fr_k = rand_frames()
+    fr_p = {k: v.clone() for k, v in fr_k.items()}
+    kw = dict(mb_width=mbw, mb_height=mbh)
+    pk = fn(res, recs, active, fr_k, **kw)
+    pp = plain(res, recs, active, fr_p, **kw)
+    err = require_equal(label, [(pk[k], pp[k]) for k in "yuv"]
+                        + [(fr_k[k], fr_p[k]) for k in "yuv"])
+    stats = dict(max_abs_err=err,
+                 **timed(lambda: fn(res, recs, active, fr_k, **kw), reps),
+                 plain_ms=time_ms(lambda: plain(res, recs, active, fr_p,
+                                                **kw), reps))
+    stats["bound_ms"], stats["bound_by"] = bound(
+        compose_needed_bytes(recs, active, mbw, mbh))
+    stats["yardstick_ms"] = bound(
+        compose_bytes(res, recs, active, fr_k, pk))[0]
+    return pk, stats
+
+
+def p_tick_keys(stats: dict) -> dict:
+    """A kernel's numbers on the P-heavy tick, as `<key>_p` entries."""
+    return {f"{k}_p": stats[k] for k in ("ms", "device_ms", "plain_ms",
+                                         "bound_ms", "yardstick_ms")}
+
+
+def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
+    """K2F, K3 and K3F against their plain forms on the tests' shared
+    edge case (tools/dense_cases.py) at the bench's picture size:
+    vectors at and past every edge with every half-pel phase, STALE /
+    SKIP / INTER / INTRA mixes, inactive and all-STALE lanes,
+    int16-extreme levels and residuals.  Returns each one's max |err|."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.ops import idct as IDCT
+    from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.tools.dense_cases import dense_case
+
+    c = dense_case(17, mbw, mbh, lanes)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    args = [t(c[k]) for k in ("coeffs", "recs", "nfinal", "iq", "nq")]
+    errs = {"K2F": require_equal("K2F idct, edge case", [(
+        IDCT.block_residuals_flat(*args),
+        IDCT.block_residuals_flat_torch(*args))])}
+    recs, active = t(c["recs"]), t(c["active"])
+    for name, fn, plain, key in (
+            ("K3", MC.predict_compose_put, MC.predict_compose_put_torch,
+             "res_T"),
+            ("K3F", MC.predict_compose_put_flat,
+             MC.predict_compose_put_flat_torch, "res")):
+        fr_k = {k: t(v) for k, v in c["frames"].items()}
+        fr_p = {k: v.clone() for k, v in fr_k.items()}
+        kw = dict(mb_width=mbw, mb_height=mbh)
+        pk = fn(t(c[key]), recs, active, fr_k, **kw)
+        pp = plain(t(c[key]), recs, active, fr_p, **kw)
+        errs[name] = require_equal(
+            f"{name} compose, edge case", [(pk[k], pp[k]) for k in "yuv"]
+            + [(fr_k[k], fr_p[k]) for k in "yuv"])
+    torch.cuda.synchronize()
+    log(f"[kernel] edge case ({lanes} lanes, {mbw}x{mbh} MBs): max |err| "
+        f"{errs}")
+    return errs
+
+
+def flat_kernels(x, x_p, chain, rand_frames, reps: int, mbw: int,
                  mbh: int, clock_hz: float) -> list:
     """K1F, K2F and K3F against their plain versions on the bench tick
     `x` (run_chunk's scan configuration: two buckets of 2,048 / 512
-    steps in chunks of 128, long_rows from bucket_policy); returns
-    their kernel entries."""
+    steps in chunks of 128, long_rows from bucket_policy); K2F and K3F
+    also on K1F's output of the P-heavy tick `x_p` (its numbers as
+    `<key>_p`).  Returns their kernel entries."""
     import torch
     from espflix_tpu_torch.models import mpeg1 as M
     from espflix_tpu_torch.ops import idct as IDCT
@@ -616,15 +763,20 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
     from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.runtime.scheduler import bucket_policy
 
+    def scan_config(xt):
+        args = [xt[k] for k in M.SCAN_KEYS]
+        need = int(((xt["pic_type"] == 1) & (xt["alive"] == 1)).sum())
+        long_rows, s_long, s_short = bucket_policy(
+            max(need, 8), args[0].shape[0], steps_long=2048,
+            steps_short=512)
+        return args, dict(mb_width=mbw, mb_height=mbh, n_lanes=N,
+                          long_rows=long_rows, steps_long=s_long,
+                          steps_short=s_short, chunk=128,
+                          lut=chain.scan_lut, zigzag=chain.zigzag)
+
     out = []
     N = x["active"].shape[0]
-    args = [x[k] for k in M.SCAN_KEYS]
-    need = int(((x["pic_type"] == 1) & (x["alive"] == 1)).sum())
-    long_rows, s_long, s_short = bucket_policy(
-        max(need, 8), args[0].shape[0], steps_long=2048, steps_short=512)
-    skw = dict(mb_width=mbw, mb_height=mbh, n_lanes=N, long_rows=long_rows,
-               steps_long=s_long, steps_short=s_short, chunk=128,
-               lut=chain.scan_lut, zigzag=chain.zigzag)
+    args, skw = scan_config(x)
     got = VS.run_scan_bucketed(*args, **skw)
     ref, plain_ms = run_timed(lambda: VS.run_scan_bucketed_torch(*args,
                                                                  **skw))
@@ -641,50 +793,52 @@ def flat_kernels(x, chain, rand_frames, reps: int, mbw: int,
     out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
         *args, VS.compact_lut(chain.scan_lut), chain.zigzag, *got),
         scan_chain_ms(int(got[4]), clock_hz))
-    log(f"[kernel] {out[-1]} (long_rows {long_rows}, steps "
-        f"{s_long}/{s_short}; chain: the longest row's {int(got[4])} "
-        f"steps x {SCAN_STEP_CYCLES} cycles)")
+    log(f"[kernel] {out[-1]} (long_rows {skw['long_rows']}, steps "
+        f"{skw['steps_long']}/{skw['steps_short']}; chain: the longest "
+        f"row's {int(got[4])} steps x {SCAN_STEP_CYCLES} cycles)")
 
-    coeffs, recs, nfinal = got[:3]
-    idct_args = (coeffs, recs, nfinal, x["intra_q"], x["non_intra_q"],
-                 chain.scale_dct)
-    res_k = IDCT.block_residuals_flat(*idct_args)
-    res_p = IDCT.block_residuals_flat_torch(*idct_args)
-    out.append(dict(
-        name="K2F_dequant_idct_flat", route="cuda",
-        source="espflix_tpu_torch/csrc/idct.cu",
-        replaces="espflix_tpu/ops/idct_pallas.py:86",
-        max_abs_err=require_equal("K2F idct", [(res_k, res_p)]),
-        library_ms=None,
-        **timed(lambda: IDCT.block_residuals_flat(*idct_args), reps),
-        plain_ms=time_ms(lambda: IDCT.block_residuals_flat_torch(
-            *idct_args), reps)))
-    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(*idct_args,
-                                                            res_k))
-    log(f"[kernel] {out[-1]}")
-
-    fr_k = rand_frames()
-    fr_p = {k: v.clone() for k, v in fr_k.items()}
-    active = x["active"].clone()
-    active[5::13] = False                      # some inactive lanes
-    mc_kw = dict(mb_width=mbw, mb_height=mbh)
-    pk = MC.predict_compose_put_flat(res_k, recs, active, fr_k, **mc_kw)
-    pp = MC.predict_compose_put_flat_torch(res_k, recs, active, fr_p,
-                                           **mc_kw)
-    err = require_equal("K3F compose", [(pk[k], pp[k]) for k in "yuv"]
-                        + [(fr_k[k], fr_p[k]) for k in "yuv"])
-    out.append(dict(
-        name="K3F_predict_compose_put_flat", route="cuda",
-        source="espflix_tpu_torch/csrc/compose.cu",
-        replaces="espflix_tpu/ops/mocomp_pallas.py:92,161",
-        max_abs_err=err, library_ms=None,
-        **timed(lambda: MC.predict_compose_put_flat(
-            res_k, recs, active, fr_k, **mc_kw), reps),
-        plain_ms=time_ms(lambda: MC.predict_compose_put_flat_torch(
-            res_k, recs, active, fr_p, **mc_kw), reps)))
-    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(
-        compose_bytes(res_k, recs, active, fr_k, pk))
-    log(f"[kernel] {out[-1]}")
+    # K2F and K3F on K1F's output of the I-heavy tick, then the P-heavy
+    stats = {}
+    for label, xt in (("I", x), ("P", x_p)):
+        if xt is not x:
+            p_args, p_kw = scan_config(xt)
+            got = VS.run_scan_bucketed(*p_args, **p_kw)
+        coeffs, recs, nfinal = got[:3]
+        idct_args = (coeffs, recs, nfinal, xt["intra_q"],
+                     xt["non_intra_q"], chain.scale_dct)
+        res_k = IDCT.block_residuals_flat(*idct_args)
+        res_p = IDCT.block_residuals_flat_torch(*idct_args)
+        k2f = dict(
+            max_abs_err=require_equal(f"K2F idct ({label} tick)",
+                                      [(res_k, res_p)]),
+            **timed(lambda: IDCT.block_residuals_flat(*idct_args), reps),
+            plain_ms=time_ms(lambda: IDCT.block_residuals_flat_torch(
+                *idct_args), reps))
+        coded_mbs = int((nfinal > 0).reshape(N, -1, 6).any(-1).sum())
+        k2f["bound_ms"], k2f["bound_by"] = bound(idct_needed_bytes(
+            nfinal, ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, 1),
+            coded_mbs * 4))
+        k2f["yardstick_ms"] = bound(nbytes(*idct_args, res_k))[0]
+        active = xt["active"].clone()
+        active[5::13] = False                  # some inactive lanes
+        _pk, k3f = compose_check(
+            f"K3F compose ({label} tick)", MC.predict_compose_put_flat,
+            MC.predict_compose_put_flat_torch, res_k, recs, active,
+            rand_frames, mbw, mbh, reps)
+        stats[label] = (k2f, k3f)
+    for i, (name, source, replaces) in enumerate((
+            ("K2F_dequant_idct_flat", "idct.cu",
+             "espflix_tpu/ops/idct_pallas.py:86"),
+            ("K3F_predict_compose_put_flat", "compose.cu",
+             "espflix_tpu/ops/mocomp_pallas.py:92,161"))):
+        on_i, on_p = stats["I"][i], stats["P"][i]
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"espflix_tpu_torch/csrc/{source}", replaces=replaces,
+            library_ms=None, **on_i, **p_tick_keys(on_p)))
+        out[-1]["max_abs_err"] = max(on_i["max_abs_err"],
+                                     on_p["max_abs_err"])
+        log(f"[kernel] {out[-1]}")
     torch.cuda.synchronize()
     return out
 
@@ -1226,8 +1380,9 @@ def main() -> int:
         f"{'%.1f s' % build.build_seconds if build.build_seconds else 'cached'}"
         f", {len([p for p in build.sources() if p.suffix == '.cu'])} "
         "sources in parallel)")
-    log(f"[resources] scan kernels (cudaFuncGetAttributes): "
-        f"{VS.kernel_resources()}")
+    for entry in build.RESOURCES:
+        log(f"[resources] {entry} (cudaFuncGetAttributes): "
+            f"{build.resources(entry)}")
     # the sessions' TS demuxer (native/ts_demux.cpp) builds at its first
     # use; build it here so that the timed serving phase does not
     t0 = time.perf_counter()
@@ -1301,11 +1456,13 @@ def main() -> int:
         **timed(lambda: IDCT.block_residuals_T(*idct_args), args.reps),
         plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
                          args.reps)))
-    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
-        *idct_args, res_k))
+    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
+        idct_needed_bytes(nfinal, intra_bl, int((nfinal > 0).sum()) * 5))
+    kernels[-1]["yardstick_ms"] = bound(nbytes(*idct_args, res_k))[0]
     log(f"[kernel] {kernels[-1]}")
 
-    # K3 on a P-heavy tick with random reference planes and parities
+    # K3 on K2's output of the I-heavy tick, then of the P-heavy one,
+    # with random reference planes and parities
     g = torch.Generator(device="cpu").manual_seed(5)
 
     def rand_frames():
@@ -1317,26 +1474,31 @@ def main() -> int:
                                      dtype=torch.int32).to(dev)
         return fr
 
-    fr_k = rand_frames()
-    fr_p = {k: v.clone() for k, v in fr_k.items()}
+    k_p = int(n_i.argmin())
+    x_p = {k: v[k_p] for k, v in xs.items()}
     active = x["active"].clone()
     active[::17] = False                       # some inactive lanes
-    mc_kw = dict(mb_width=mbw, mb_height=mbh)
-    pk = MC.predict_compose_put(res_k, recs, active, fr_k, **mc_kw)
-    pp = MC.predict_compose_put_torch(res_k, recs, active, fr_p, **mc_kw)
-    err = require_equal("K3 compose", [(pk[k], pp[k]) for k in "yuv"]
-                        + [(fr_k[k], fr_p[k]) for k in "yuv"])
+    pk, k3_i = compose_check("K3 compose (I tick)", MC.predict_compose_put,
+                             MC.predict_compose_put_torch, res_k, recs,
+                             active, rand_frames, mbw, mbh, args.reps)
+    coeffs_p, recs_p, nfinal_p = VS.run_scan_bucketed_dense(
+        *[x_p[k] for k in CH.DECODE_KEYS[:9]], **scan_kw)[:3]
+    res_k_p = IDCT.block_residuals_T(
+        coeffs_p, ((recs_p & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1),
+        ((recs_p >> 2) & 31).repeat_interleave(6, dim=1), x_p["intra_q"],
+        x_p["non_intra_q"], nfinal_p, chain.scale_dct)
+    active_p = x_p["active"].clone()
+    active_p[::17] = False
+    _pk, k3_p = compose_check("K3 compose (P tick)", MC.predict_compose_put,
+                              MC.predict_compose_put_torch, res_k_p, recs_p,
+                              active_p, rand_frames, mbw, mbh, args.reps)
     kernels.append(dict(
         name="K3_predict_compose_put", route="cuda",
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:975,1084",
-        max_abs_err=err, library_ms=None,
-        **timed(lambda: MC.predict_compose_put(res_k, recs, active, fr_k,
-                                               **mc_kw), args.reps),
-        plain_ms=time_ms(lambda: MC.predict_compose_put_torch(
-            res_k, recs, active, fr_p, **mc_kw), args.reps)))
-    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
-        compose_bytes(res_k, recs, active, fr_k, pk))
+        library_ms=None, **k3_i, **p_tick_keys(k3_p)))
+    kernels[-1]["max_abs_err"] = max(k3_i["max_abs_err"],
+                                     k3_p["max_abs_err"])
     log(f"[kernel] {kernels[-1]}")
 
     comp_args = (pk["y"], pk["u"], pk["v"], x["parity"], x["osd"],
@@ -1403,12 +1565,16 @@ def main() -> int:
     log(f"[kernel] {kernels[-1]} (chain of {steps} steps at "
         f"{sm_clock_hz / 1e6:.0f} MHz)")
 
-    kernels += flat_kernels(x, chain, rand_frames, args.reps, mbw, mbh,
-                            sm_clock_hz)
-    k_p = int(n_i.argmin())
+    kernels += flat_kernels(x, x_p, chain, rand_frames, args.reps, mbw,
+                            mbh, sm_clock_hz)
+    edge = dense_edge_case(dev, mbw, mbh)
+    for e in kernels:
+        short = e["name"].split("_")[0]
+        if short in edge:
+            e["max_abs_err"] = max(e["max_abs_err"], edge[short])
     kernels += predict_seq_kernels(
-        {k: v[k_p] for k, v in xs.items()}, bench_ticks[k_i], wpl, chain,
-        rand_frames, args.reps, mbw, mbh, dev, sm_clock_hz)
+        x_p, bench_ticks[k_i], wpl, chain, rand_frames, args.reps, mbw, mbh,
+        dev, sm_clock_hz)
 
     log(f"[time] phases 1-3 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -1482,7 +1648,7 @@ def main() -> int:
     hs[:, rng.random(N) >= 1 / 3] = 0
     xs_s = {k: v[:K_s] for k, v in xs.items()}
     xs_s["hscroll"] = torch.from_numpy(hs).to(dev)
-    slide = tuple(torch.randint(0, 256, (N,) + tuple(fr_k[k].shape[2:]),
+    slide = tuple(torch.randint(0, 256, (N,) + tuple(pk[k].shape[1:]),
                                 generator=g, dtype=torch.uint8).to(dev)
                   for k in "yuv")
     kw_s = dict(kw, scrolled=True)

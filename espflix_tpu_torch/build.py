@@ -45,6 +45,11 @@ SIGNATURES = {
     "esp_pdm": "p" * 4 + "i" * 2,
     "esp_sbc_decode": "p" * 11 + "i" * 4,
 }
+# entry points that report cudaFuncGetAttributes figures of their
+# source's kernels (csrc/resources.cuh)
+RESOURCES = ("esp_scan_resources", "esp_compose_resources",
+             "esp_idct_resources")
+MAX_RESOURCE_KERNELS = 8                # kernels an entry may report
 
 _lib = None
 _lib_device: int | None = None          # the library's current device
@@ -126,8 +131,10 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.esp_set_device.argtypes = [ctypes.c_int]
         lib.esp_set_device.restype = ctypes.c_int
-        lib.esp_scan_resources.argtypes = [ctypes.c_void_p]
-        lib.esp_scan_resources.restype = ctypes.c_int
+        for name in RESOURCES:
+            getattr(lib, name).argtypes = [ctypes.c_void_p,
+                                           ctypes.c_void_p, ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -179,3 +186,19 @@ def launch(name: str, *args):
     rc = getattr(lib, name)(*conv, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}")
+
+
+def resources(entry: str) -> dict:
+    """Registers, local (stack) bytes, static shared bytes and the
+    largest block of each kernel that C entry `entry` (one of RESOURCES)
+    reports, by kernel name (cudaFuncGetAttributes on the library's
+    current device)."""
+    out = (ctypes.c_int * (4 * MAX_RESOURCE_KERNELS))()
+    names = (ctypes.c_char_p * MAX_RESOURCE_KERNELS)()
+    n = getattr(library(), entry)(out, names, MAX_RESOURCE_KERNELS)
+    if n < 0:
+        raise RuntimeError(f"{entry}: CUDA error {-n}")
+    keys = ("registers", "local_bytes", "static_shared_bytes",
+            "max_threads")
+    return {names[i].decode(): dict(zip(keys, out[4 * i:4 * i + 4]))
+            for i in range(n)}

@@ -6,35 +6,54 @@
 // assembly, compose and put of models/mpeg1.dense_compose (coeffs_T
 // path, mpeg1.py:562-664).  It computes what every predict_plane
 // variant of mocomp_pallas.py computes, with the main path's edge rule.
-//
-// What bounds it on an H100: memory -- per output pixel one byte of the
-// current plane, four taps of the reference (mostly L1 hits), two bytes
-// of residual, and two byte stores.  The TPU version materialised the
-// predicted planes and a 7-D residual transpose in HBM because a fused
-// kernel serialised there on per-MB branches (mpeg1.py:358-368); a GPU
-// thread simply branches per pixel.  One block per (MB row, lane,
-// plane): it stages the row's residual blocks from K2's [N, 64, BL]
-// output in shared memory with coalesced reads, then walks the row's
-// pixels in raster order so the reference, current-plane and output
-// accesses of a warp are contiguous.
-//
-// The put writes IN PLACE into frames[:, parity]: the prediction reads
-// only the reference slot 1 - parity, and each pixel of the parity slot
-// is read (as `cur`) and written by the same thread, so no block reads
-// what another writes.  The presented planes go to separate tensors.
-//
 // K3F (esp_compose_put_flat) is the same kernel reading K2F's
-// lane-minor residuals int16[N, MB*6, 64]: the plane assembly of the
-// lane-minor dense phase (models/mpeg1.py:592-609) becomes index
-// arithmetic in the staging loop, so no residual plane is written.  It
-// replaces mocomp_pallas.py _compose_kernel (compose_plane_pallas) and
-// _compose2_kernel (compose_plane_pallas2), y, u and v in one launch.
+// lane-minor residuals int16[N, MB*6, 64] instead of K2's [N, 64, BL]:
+// it replaces mocomp_pallas.py _compose_kernel (compose_plane_pallas)
+// and _compose2_kernel (compose_plane_pallas2), y, u and v in one
+// launch, with the lane-minor plane assembly (models/mpeg1.py:592-609)
+// as index arithmetic.
 //
 // Semantics: mocomp.predict_plane_mxu's edge rule (window origin
 // clip(xh >> 1, 0, W - S), zero past the plane), MPEG-1 half-pel
 // rounding, chroma MVs >> 1; STALE keeps cur, INTRA is pin(res), else
 // pin(int16(pred + res)) with pin = clip to 0..248; inactive lanes keep
 // cur.
+//
+// What bounds it on an H100: memory.  A 352x192 lane moves 608 KB --
+// its residuals (2 B a pixel), both frame slots, the parity slot and
+// the presented planes written -- and does a few integer operations a
+// byte.  A kernel that walks the pixels one byte a thread instead pays
+// for instruction issue: a runtime division or modulo to place every
+// pixel, byte loads whose latencies queue behind each other, and the
+// residuals staged once per plane.
+//
+// The design: one block per (MB row, lane) covers all three planes,
+// blockDim (16, mbw).  Thread (yi, c) owns luma row yi of MB c as one
+// 16-byte vector and chroma row yi & 7 of MB c -- in u for yi < 8, in v
+// otherwise -- as one 8-byte vector, so every thread does the same work
+// and nothing is divided by a runtime value.  cur, out and the put move
+// as uint4 / uint2 (an MB column starts at c * S, and W is a multiple
+// of 16).  Residuals: K3F's block row is 16 contiguous bytes of [N, BL,
+// 64], loaded straight from global memory (a warp's eight threads of a
+// block read its 128 bytes); K3's MB row of 64 x 6*mbw int16 is staged
+// once per block, read coalesced along bl and stored transposed to
+// [bl][72] (8 int16 of padding keep a quarter-warp's 16-byte accesses
+// in distinct banks), so a thread reads its block row as one 16-byte
+// shared load.  Prediction reads the S/4 + 1 aligned 32-bit words that
+// cover a row's S + 1 taps through the read-only path and cuts the
+// taps out with funnel shifts; a word past the right edge, and the row
+// past the bottom, read 0 (rule A).  Two-tap averages are __vavgu4
+// ((a + b + 1) >> 1 a byte), the four-tap one works in 16-bit lanes,
+// and pred + res, the int16 wrap and the pin run two pixels a word
+// (__vadd2, __vmaxs2, __vmins2).  An INTRA MB reads no reference; a
+// STALE MB or an inactive lane reads no residual and writes only `out`
+// (from cur), never storing back into cur.
+//
+// The put writes IN PLACE into frames[:, parity]: the prediction reads
+// only the reference slot 1 - parity, and each byte of the parity slot
+// is read (as `cur`) and written by the thread that owns it, so no
+// thread reads what another writes.  The presented planes go to
+// separate tensors.
 //
 // K3P (esp_predict) -- prediction alone, for a band of MB rows.
 // Replaces mocomp_pallas.py _kernel (predict_plane_pallas), the
@@ -58,119 +77,221 @@
 // The band holds MB rows [row0, row0 + mbh_loc) of a full-height
 // reference plane (H rows); the output is the band, [N, mbh_loc*S, W].
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "resources.cuh"
+
 namespace {
+
+constexpr int MB_STALE = 0, MB_INTRA = 3;
+// int16 a staged residual block of K3: 64 and 8 of padding
+constexpr int RES_STRIDE = 72;
+constexpr int MAX_MB_WIDTH = 64;        // ops/vlc_scan.py MAX_MB_WIDTH
 
 __device__ __forceinline__ int sext12(int x) {
   x &= 0xFFF;
   return x >= 0x800 ? x - 0x1000 : x;
 }
 
-__device__ __forceinline__ int pin(int x) {
-  return x < 0 ? 0 : (x > 248 ? 248 : x);
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+template <int S>
+__device__ __forceinline__ void store_row(uint8_t* p,
+                                          const uint32_t (&w)[S / 4]) {
+  if constexpr (S == 16)
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  else
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
+__device__ __forceinline__ void unpack(const uint4 v, uint32_t* w) {
+  w[0] = v.x;
+  w[1] = v.y;
+  w[2] = v.z;
+  w[3] = v.w;
+}
+
+// (a + b + c + d + 2) >> 2 a byte, in 16-bit lanes
+__device__ __forceinline__ uint32_t avg4(uint32_t a, uint32_t b, uint32_t c,
+                                         uint32_t d) {
+  const uint32_t m = 0x00FF00FFu;
+  const uint32_t lo = (a & m) + (b & m) + (c & m) + (d & m) + 0x00020002u;
+  const uint32_t hi = ((a >> 8) & m) + ((b >> 8) & m) + ((c >> 8) & m) +
+                      ((d >> 8) & m) + 0x00020002u;
+  return ((lo >> 2) & m) | (((hi >> 2) & m) << 8);
+}
+
+// two int16 lanes clipped to 0..248
+__device__ __forceinline__ uint32_t pin2(uint32_t x) {
+  return __vmins2(__vmaxs2(x, 0u), 0x00F800F8u);
+}
+
+// four pixels: pin(int16(pred + res)) from the predicted bytes p and
+// the residual pairs r0 (pixels 0, 1) and r1 (pixels 2, 3)
+__device__ __forceinline__ uint32_t compose4(uint32_t p, uint32_t r0,
+                                             uint32_t r1) {
+  return __byte_perm(pin2(__vadd2(__byte_perm(p, 0, 0x4140), r0)),
+                     pin2(__vadd2(__byte_perm(p, 0, 0x4342), r1)), 0x6420);
+}
+
+// the S taps at x0 (a) and, with hx, at x0 + 1 (b) of one reference
+// row, as S/4 words; the word past the right edge reads 0
+template <int S>
+__device__ __forceinline__ void taps_row(const uint8_t* row, int x0, int W,
+                                         bool hx, uint32_t (&a)[S / 4],
+                                         uint32_t (&b)[S / 4]) {
+  const int w0 = x0 & ~3, sh = (x0 & 3) * 8;
+  const uint32_t* p = reinterpret_cast<const uint32_t*>(row + w0);
+  uint32_t q[S / 4 + 1];
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k) q[k] = __ldg(p + k);
+  q[S / 4] = w0 + S < W ? __ldg(p + S / 4) : 0u;
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k) {
+    a[k] = __funnelshift_r(q[k], q[k + 1], sh);
+    b[k] = hx ? __funnelshift_rc(q[k], q[k + 1], sh + 8) : 0u;
+  }
+}
+
+// one S-pixel row of an MB's half-pel prediction (rule A): window
+// origin x0, reference row sy; the row past the bottom reads 0
+template <int S>
+__device__ __forceinline__ void predict_row(const uint8_t* ref, int W,
+                                            int H, int x0, int sy, bool hx,
+                                            bool hy, uint32_t (&pred)[S / 4]) {
+  uint32_t a[S / 4], b[S / 4];
+  taps_row<S>(ref + (size_t)sy * W, x0, W, hx, a, b);
+  if (!hy) {
+#pragma unroll
+    for (int k = 0; k < S / 4; ++k) pred[k] = hx ? __vavgu4(a[k], b[k]) : a[k];
+    return;
+  }
+  uint32_t c[S / 4], d[S / 4];
+  if (sy + 1 < H) {
+    taps_row<S>(ref + (size_t)(sy + 1) * W, x0, W, hx, c, d);
+  } else {
+#pragma unroll
+    for (int k = 0; k < S / 4; ++k) c[k] = d[k] = 0u;
+  }
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k)
+    pred[k] = hx ? avg4(a[k], b[k], c[k], d[k]) : __vavgu4(a[k], c[k]);
+}
+
+// one S-pixel row yi of MB (r, c), INTRA or predicted, into cur and out
+template <int S>
+__device__ __forceinline__ void compose_row(const uint8_t* ref, uint8_t* cur,
+                                            uint8_t* out, int W, int H,
+                                            int kind, int mvx, int mvy,
+                                            int c, int r, int yi,
+                                            const uint32_t (&res)[S / 2]) {
+  uint32_t v[S / 4];
+  if (kind == MB_INTRA) {
+#pragma unroll
+    for (int k = 0; k < S / 4; ++k)
+      v[k] = __byte_perm(pin2(res[2 * k]), pin2(res[2 * k + 1]), 0x6420);
+  } else {
+    const int xh = c * 2 * S + mvx, yh = r * 2 * S + mvy;
+    uint32_t p[S / 4];
+    predict_row<S>(ref, W, H, clampi(xh >> 1, 0, W - S),
+                   clampi(yh >> 1, 0, H - S) + yi, xh & 1, yh & 1, p);
+#pragma unroll
+    for (int k = 0; k < S / 4; ++k)
+      v[k] = compose4(p[k], res[2 * k], res[2 * k + 1]);
+  }
+  store_row<S>(cur, v);
+  store_row<S>(out, v);
 }
 
 // FLAT = false: residuals res int16[N, 64, BL] (K2's output); FLAT =
-// true: res int16[N, BL, 64] (K2F's output).  Only the staging of the
-// MB row's residual blocks into shared memory differs.
+// true: res int16[N, BL, 64] (K2F's output).  Grid (mbh, N), blockDim
+// (16, mbw): thread (yi, c) owns luma row yi and chroma row yi & 7 (u
+// for yi < 8, v for yi >= 8) of MB c of MB row blockIdx.x.
 template <bool FLAT>
-__global__ void compose_put_kernel(const int16_t* __restrict__ rsrc,
-                                   const int* __restrict__ recs,
-                                   const uint8_t* __restrict__ active,
-                                   const int* __restrict__ parity,
-                                   uint8_t* fy, uint8_t* fu, uint8_t* fv,
-                                   uint8_t* __restrict__ py,
-                                   uint8_t* __restrict__ pu,
-                                   uint8_t* __restrict__ pv, int mbw,
-                                   int mbh) {
-  extern __shared__ int16_t sres[];          // [64][mbw * nb]
-  __shared__ int s_kind[64], s_mvx[64], s_mvy[64];
-  const int r = blockIdx.x, n = blockIdx.y, plane = blockIdx.z;
-  const int S = plane == 0 ? 16 : 8;
-  const int nb = plane == 0 ? 4 : 1;         // residual blocks per MB
-  const int W = mbw * S, H = mbh * S;
-  const int BL = mbw * mbh * 6;
-  const int cols = mbw * nb;
-
-  for (int c = threadIdx.x; c < mbw; c += blockDim.x) {
-    const int rec = recs[(size_t)n * mbw * mbh + r * mbw + c];
-    int mvx = sext12(rec >> 7), mvy = sext12(rec >> 19);
-    if (plane) { mvx >>= 1; mvy >>= 1; }
-    s_kind[c] = rec & 3;
-    s_mvx[c] = mvx;
-    s_mvy[c] = mvy;
-  }
-  if (FLAT) {
-    // the row's blocks are contiguous: position p fastest for coalescing
-    const int16_t* res_n =
-        rsrc + ((size_t)n * BL + (size_t)r * mbw * 6) * 64;
-    for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
-      const int k = i / 64, p = i % 64;
-      const int c = k / nb, blk = plane == 0 ? k % nb : 3 + plane;
-      sres[p * cols + k] = res_n[(size_t)(c * 6 + blk) * 64 + p];
-    }
-  } else {
-    const int16_t* res_n = rsrc + (size_t)n * 64 * BL + (size_t)r * mbw * 6;
-    for (int i = threadIdx.x; i < 64 * cols; i += blockDim.x) {
-      const int p = i / cols, k = i % cols;
-      const int c = k / nb, blk = plane == 0 ? k % nb : 3 + plane;
-      sres[i] = res_n[(size_t)p * BL + c * 6 + blk];
-    }
-  }
-  __syncthreads();
-
-  uint8_t* f = plane == 0 ? fy : (plane == 1 ? fu : fv);
-  uint8_t* pres = plane == 0 ? py : (plane == 1 ? pu : pv);
-  const int par = parity[n];
+__global__ void __launch_bounds__(1024)
+    compose_put_kernel(const int16_t* __restrict__ rsrc,
+                       const int* __restrict__ recs,
+                       const uint8_t* __restrict__ active,
+                       const int* __restrict__ parity, uint8_t* fy,
+                       uint8_t* fu, uint8_t* fv, uint8_t* __restrict__ py,
+                       uint8_t* __restrict__ pu, uint8_t* __restrict__ pv,
+                       int mbw, int mbh) {
+  extern __shared__ uint4 sres[];    // K3: [mbw * 6][RES_STRIDE / 8]
+  const int yi = threadIdx.x, c = threadIdx.y;
+  const int r = blockIdx.x, n = blockIdx.y;
+  const int W = mbw * 16, H = mbh * 16, BL = mbw * mbh * 6;
   const bool live = active[n] != 0;
-  const size_t plane_px = (size_t)H * W;
-  const uint8_t* ref = f + ((size_t)n * 2 + (1 - par)) * plane_px;
-  uint8_t* cur = f + ((size_t)n * 2 + par) * plane_px;
-  uint8_t* out = pres + (size_t)n * plane_px;
+  const int par = parity[n];
+  const int rec = recs[(size_t)n * mbw * mbh + r * mbw + c];
+  const int kind = live ? rec & 3 : MB_STALE;
 
-  for (int i = threadIdx.x; i < S * W; i += blockDim.x) {
-    const int yi = i / W, x = i % W;
-    const int c = x / S, xi = x % S;
-    const int y = r * S + yi;
-    const size_t at = (size_t)y * W + x;
-    const int kind = s_kind[c];
-    const uint8_t old = cur[at];
-    int val = old;
-    if (kind != 0 && live) {
-      const int blk = plane == 0 ? ((yi >> 3) << 1) | (xi >> 3) : 0;
-      const int p = ((yi & 7) << 3) | (xi & 7);
-      const int res = sres[p * cols + c * nb + blk];
-      if (kind == 3) {
-        val = pin(res);
-      } else {
-        const int xh = c * S * 2 + s_mvx[c];
-        const int yh = r * S * 2 + s_mvy[c];
-        int x0 = xh >> 1, y0 = yh >> 1;
-        x0 = x0 < 0 ? 0 : (x0 > W - S ? W - S : x0);
-        y0 = y0 < 0 ? 0 : (y0 > H - S ? H - S : y0);
-        const int sx = x0 + xi, sy = y0 + yi;     // >= 0, < W / < H
-        const bool xin = sx + 1 < W, yin = sy + 1 < H;
-        const uint8_t* rp = ref + (size_t)sy * W + sx;
-        const int a = rp[0];
-        const int b = xin ? rp[1] : 0;
-        const int cc = yin ? rp[W] : 0;
-        const int d = (xin && yin) ? rp[W + 1] : 0;
-        const bool hx = xh & 1, hy = yh & 1;
-        const int pred = !hx ? (!hy ? a : (a + cc + 1) >> 1)
-                             : (!hy ? (a + b + 1) >> 1
-                                    : (a + b + cc + d + 2) >> 2);
-        val = pin((int16_t)(pred + res));
+  if (!FLAT && live) {
+    // the MB row's 6*mbw blocks x 8 block rows, three a thread (16*mbw
+    // threads): 2-byte loads along bl, one 16-byte transposed store
+    const int ncols = 6 * mbw;
+    const int16_t* src = rsrc + (size_t)n * 64 * BL + (size_t)r * ncols;
+    int k = yi + 16 * c, row = 0;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      while (k >= ncols) {
+        k -= ncols;
+        ++row;
       }
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t lo = (uint16_t)src[(size_t)(8 * row + 2 * j) * BL + k];
+        const uint32_t hi =
+            (uint16_t)src[(size_t)(8 * row + 2 * j + 1) * BL + k];
+        w[j] = lo | hi << 16;
+      }
+      sres[k * (RES_STRIDE / 8) + row] = make_uint4(w[0], w[1], w[2], w[3]);
+      k += 16 * mbw;
     }
-    cur[at] = (uint8_t)val;
-    out[at] = (uint8_t)val;
+    __syncthreads();
   }
-}
 
-__device__ __forceinline__ int clampi(int x, int lo, int hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
+  const int yc = yi & 7, Wc = W / 2, Hc = H / 2;
+  const size_t ypx = (size_t)H * W, cpx = ypx / 4;
+  const size_t yat = (size_t)(r * 16 + yi) * W + c * 16;
+  const size_t cat = (size_t)(r * 8 + yc) * Wc + c * 8;
+  uint8_t* cur_y = fy + ((size_t)n * 2 + par) * ypx;
+  uint8_t* fc = yi < 8 ? fu : fv;
+  uint8_t* cur_c = fc + ((size_t)n * 2 + par) * cpx;
+  uint8_t* out_y = py + n * ypx + yat;
+  uint8_t* out_c = (yi < 8 ? pu : pv) + n * cpx + cat;
+  if (kind == MB_STALE) {              // and every MB of an inactive lane
+    *reinterpret_cast<uint4*>(out_y) =
+        *reinterpret_cast<const uint4*>(cur_y + yat);
+    *reinterpret_cast<uint2*>(out_c) =
+        *reinterpret_cast<const uint2*>(cur_c + cat);
+    return;
+  }
+
+  // the thread's block rows: luma blocks blk, blk + 1, chroma 4 + (yi >> 3)
+  const int blk = (yi >> 3) * 2, cblk = 4 + (yi >> 3);
+  uint32_t ry[8], rc[4];
+  if (FLAT) {
+    const uint4* b = reinterpret_cast<const uint4*>(
+        rsrc + ((size_t)n * BL + (size_t)(r * mbw + c) * 6) * 64);
+    unpack(__ldg(b + blk * 8 + yc), ry);
+    unpack(__ldg(b + (blk + 1) * 8 + yc), ry + 4);
+    unpack(__ldg(b + cblk * 8 + yc), rc);
+  } else {
+    const uint4* b = sres + c * 6 * (RES_STRIDE / 8);
+    unpack(b[blk * (RES_STRIDE / 8) + yc], ry);
+    unpack(b[(blk + 1) * (RES_STRIDE / 8) + yc], ry + 4);
+    unpack(b[cblk * (RES_STRIDE / 8) + yc], rc);
+  }
+  const int mvx = sext12(rec >> 7), mvy = sext12(rec >> 19);
+  compose_row<16>(fy + ((size_t)n * 2 + 1 - par) * ypx, cur_y + yat, out_y,
+                  W, H, kind, mvx, mvy, c, r, yi, ry);
+  compose_row<8>(fc + ((size_t)n * 2 + 1 - par) * cpx, cur_c + cat, out_c,
+                 Wc, Hc, kind, mvx >> 1, mvy >> 1, c, r, yc, rc);
 }
 
 template <bool CLIP_TAPS>
@@ -232,15 +353,38 @@ __global__ void predict_kernel(const uint8_t* __restrict__ ref,
   }
 }
 
+// K3's stage takes 864 B an MB column, over the 48 KB default from
+// mb_width 57 on: raise its limit to MAX_MB_WIDTH columns once for each
+// device (a function attribute belongs to the device's context), not
+// on every launch
+cudaError_t allow_k3_stage() {
+  static std::atomic<unsigned long long> raised{0};   // a bit a device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(
+      compose_put_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      MAX_MB_WIDTH * 6 * RES_STRIDE * (int)sizeof(int16_t));
+  if (e == cudaSuccess) raised.fetch_or(bit);
+  return e;
+}
+
 template <bool FLAT>
 int launch_compose_put(const void* res, const void* recs, const void* active,
                        const void* parity, void* fy, void* fu, void* fv,
                        void* py, void* pu, void* pv, int N, int mbw, int mbh,
                        void* stream) {
-  const int threads = 256;
-  dim3 grid(mbh, N, 3);
-  const size_t smem = (size_t)64 * mbw * 4 * sizeof(int16_t);
-  compose_put_kernel<FLAT><<<grid, threads, smem, (cudaStream_t)stream>>>(
+  if (mbw > MAX_MB_WIDTH) return (int)cudaErrorInvalidValue;
+  const dim3 grid(mbh, N), block(16, mbw);
+  size_t smem = 0;
+  if (!FLAT) {
+    smem = (size_t)mbw * 6 * RES_STRIDE * sizeof(int16_t);
+    const cudaError_t e = allow_k3_stage();
+    if (e != cudaSuccess) return (int)e;
+  }
+  compose_put_kernel<FLAT><<<grid, block, smem, (cudaStream_t)stream>>>(
       (const int16_t*)res, (const int*)recs, (const uint8_t*)active,
       (const int*)parity, (uint8_t*)fy, (uint8_t*)fu, (uint8_t*)fv,
       (uint8_t*)py, (uint8_t*)pu, (uint8_t*)pv, mbw, mbh);
@@ -284,4 +428,15 @@ extern "C" int esp_predict(const void* ref, const void* mvh, const void* mvv,
         (const uint8_t*)ref, (const int*)mvh, (const int*)mvv, (uint8_t*)out,
         H, W, S, mbw, mbh_loc, row0);
   return (int)cudaGetLastError();
+}
+
+// K3's and K3F's registers, local and static shared bytes and largest
+// block on the current device (resources.cuh).
+extern "C" int esp_compose_resources(int* out, const char** names,
+                                     int cap) {
+  const void* fns[] = {(const void*)compose_put_kernel<false>,
+                       (const void*)compose_put_kernel<true>};
+  const char* kernel_names[] = {"compose_put_kernel<false>",
+                                "compose_put_kernel<true>"};
+  return kernel_resources(fns, kernel_names, 2, out, names, cap);
 }

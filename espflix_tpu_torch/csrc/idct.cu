@@ -26,11 +26,23 @@
 // MB*6, 64].  Replaces: espflix_tpu/ops/idct_pallas.py _kernel
 // (block_residuals_pallas) and the XLA block_residuals_flat of the
 // lane-minor dense phase (models/mpeg1.py:571-590).  Bound by memory as
-// K2 is; a block's 64 values are contiguous here, so each thread moves
-// them as eight 16-byte vectors instead of one int16 per position row.
+// K2 is.  A block's 64 values are contiguous here, so a thread that
+// owned a whole block would hold 64 values under dynamic indices
+// (local memory) and a warp's accesses would touch 32 lines an
+// instruction.  Instead eight threads own a block, four blocks a warp.
+// Thread j loads column j (eight 2-byte loads, which together read the
+// warp's 512 contiguous bytes), dequantises it and runs the column
+// pass in registers, hands the column on through an 8 x 9 int32 tile
+// in shared memory (padded so that a warp's four tiles fall in
+// distinct banks), runs the row pass on row j and stores it as one
+// 16-byte vector.  The eight threads share nfinal and the MB record,
+// so they never diverge from each other: an uncoded block costs its
+// coalesced zero stores, the DC shortcut one broadcast load.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "resources.cuh"
 
 namespace {
 
@@ -131,69 +143,73 @@ __global__ void idct_T_kernel(const int16_t* __restrict__ coeffs_T,
   for (int p = 0; p < 64; ++p) out[base + (size_t)p * BL] = (int16_t)b[p];
 }
 
-// K2F: the same arithmetic on the lane-minor layout.  One thread per
-// block; the block's 64 levels are contiguous (128 B), so a thread
-// reads and writes them as eight 16-byte vectors.  Intra flag and
-// qscale come from the block's MB record.
-__global__ void idct_flat_kernel(const int16_t* __restrict__ coeffs,
-                                 const int* __restrict__ recs,
-                                 const int* __restrict__ nfinal,
-                                 const int* __restrict__ intra_q,
-                                 const int* __restrict__ non_intra_q,
-                                 const int* __restrict__ scale,
-                                 int16_t* __restrict__ out, int MB) {
-  __shared__ int qm[2][64];
+// K2F: eight threads a block (a block's group), four blocks a warp;
+// thread j of a group holds column j, then row j, in registers.  Intra
+// flag and qscale come from the block's MB record.
+constexpr int FLAT_THREADS = 128;
+constexpr int TILE = 72;       // int32 a group's transpose tile: 8 x 9
+
+__global__ void __launch_bounds__(FLAT_THREADS)
+    idct_flat_kernel(const int16_t* __restrict__ coeffs,
+                     const int* __restrict__ recs,
+                     const int* __restrict__ nfinal,
+                     const int* __restrict__ intra_q,
+                     const int* __restrict__ non_intra_q,
+                     const int* __restrict__ scale,
+                     int16_t* __restrict__ out, int MB) {
+  // non-intra matrix at 0, intra at TILE: other banks for the 8 offset
+  __shared__ int qm[TILE + 64];
   __shared__ int sc[64];
+  __shared__ int tiles[FLAT_THREADS / 8 * TILE];
   const int n = blockIdx.y;
   for (int i = threadIdx.x; i < 64; i += blockDim.x) {
-    qm[0][i] = non_intra_q[n * 64 + i];
-    qm[1][i] = intra_q[n * 64 + i];
+    qm[i] = non_intra_q[n * 64 + i];
+    qm[TILE + i] = intra_q[n * 64 + i];
     sc[i] = scale[i];
   }
   __syncthreads();
   const int BL = MB * 6;
-  const int bl = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bl >= BL) return;
+  const int g = threadIdx.x >> 3, j = threadIdx.x & 7;
+  const int bl = blockIdx.x * (FLAT_THREADS / 8) + g;
+  if (bl >= BL) return;                    // the ragged tail, by groups
   const size_t base = ((size_t)n * BL + bl) * 64;
-  int4* dst = reinterpret_cast<int4*>(out + base);
+  uint4* dst = reinterpret_cast<uint4*>(out + base) + j;     // row j
   const int nf = nfinal[(size_t)n * BL + bl];
   if (nf == 0) {
-    for (int k = 0; k < 8; ++k) dst[k] = make_int4(0, 0, 0, 0);
+    *dst = make_uint4(0, 0, 0, 0);
     return;
   }
   const int rec = recs[(size_t)n * MB + bl / 6];
   const bool intra = (rec & 3) == 3;           // MB_INTRA
   const int qs = (rec >> 2) & 31;
-  const int* qmat = qm[intra ? 1 : 0];
-
-  int16_t lv[64];
-  const int4* src = reinterpret_cast<const int4*>(coeffs + base);
-  for (int k = 0; k < 8; ++k) {
-    const int4 v = src[k];
-    const int w[4] = {v.x, v.y, v.z, v.w};
-    for (int j = 0; j < 4; ++j) {
-      lv[8 * k + 2 * j] = (int16_t)(w[j] & 0xFFFF);
-      lv[8 * k + 2 * j + 1] = (int16_t)((unsigned)w[j] >> 16);
-    }
-  }
-  int b[64];
-  for (int p = 0; p < 64; ++p) b[p] = dequant(lv[p], p, intra, qs, qmat, sc);
-
-  int16_t o16[64];
+  const int* qmat = qm + (intra ? TILE : 0);
+  const int16_t* src = coeffs + base;
   if (nf == 1 && !intra) {
-    const int16_t dc = (int16_t)(b[0] >> 8);
-    for (int p = 0; p < 64; ++p) o16[p] = dc;
-  } else {
-    idct_8x8(b);
-    for (int p = 0; p < 64; ++p) o16[p] = (int16_t)b[p];
+    const uint32_t dc =
+        (uint16_t)(dequant(__ldg(src), 0, false, qs, qmat, sc) >> 8);
+    const uint32_t w = dc | dc << 16;
+    *dst = make_uint4(w, w, w, w);
+    return;
   }
-  for (int k = 0; k < 8; ++k) {
-    int w[4];
-    for (int j = 0; j < 4; ++j)
-      w[j] = (int)(uint16_t)o16[8 * k + 2 * j] |
-             ((int)(uint16_t)o16[8 * k + 2 * j + 1] << 16);
-    dst[k] = make_int4(w[0], w[1], w[2], w[3]);
-  }
+  int col[8], o[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+    col[r] = dequant(__ldg(src + 8 * r + j), 8 * r + j, intra, qs, qmat, sc);
+  butterfly(col, o, false);                // column j, rows k
+  int* t = tiles + g * TILE;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) t[9 * k + j] = o[k];
+  __syncwarp(0xFFu << (threadIdx.x & 24));  // the group's eight lanes
+  int row[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) row[m] = t[9 * j + m];
+  butterfly(row, o, true);                 // row j, final rounding
+  uint32_t w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    w[k] = (uint32_t)(uint16_t)o[2 * k] |
+           (uint32_t)(uint16_t)o[2 * k + 1] << 16;
+  *dst = make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 }  // namespace
@@ -216,11 +232,19 @@ extern "C" int esp_idct_flat(const void* coeffs, const void* recs,
                              const void* nfinal, const void* intra_q,
                              const void* non_intra_q, const void* scale,
                              void* out, int N, int MB, void* stream) {
-  const int threads = 128;
-  dim3 grid((MB * 6 + threads - 1) / threads, N);
-  idct_flat_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const int groups = FLAT_THREADS / 8;
+  dim3 grid((MB * 6 + groups - 1) / groups, N);
+  idct_flat_kernel<<<grid, FLAT_THREADS, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coeffs, (const int*)recs, (const int*)nfinal,
       (const int*)intra_q, (const int*)non_intra_q, (const int*)scale,
       (int16_t*)out, MB);
   return (int)cudaGetLastError();
+}
+
+// K2F's registers, local and static shared bytes and largest block on
+// the current device (resources.cuh).
+extern "C" int esp_idct_resources(int* out, const char** names, int cap) {
+  const void* fns[] = {(const void*)idct_flat_kernel};
+  const char* kernel_names[] = {"idct_flat_kernel"};
+  return kernel_resources(fns, kernel_names, 1, out, names, cap);
 }

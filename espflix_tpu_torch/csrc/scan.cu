@@ -80,6 +80,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "resources.cuh"
+
 namespace {
 
 enum {
@@ -857,22 +859,14 @@ extern "C" int esp_scan_seq(
   return (int)cudaGetLastError();
 }
 
-// Registers, local (stack) bytes, static shared bytes and the largest
-// block of the four scan kernels (dense, flat, slices, seq), four ints
-// each into out[16], from cudaFuncGetAttributes on the current device.
-extern "C" int esp_scan_resources(int* out) {
-  const void* fns[4] = {(const void*)scan_dense_kernel,
-                        (const void*)scan_flat_kernel,
-                        (const void*)scan_slices_kernel,
-                        (const void*)scan_seq_kernel};
-  for (int i = 0; i < 4; ++i) {
-    cudaFuncAttributes a;
-    cudaError_t e = cudaFuncGetAttributes(&a, fns[i]);
-    if (e != cudaSuccess) return (int)e;
-    out[4 * i + 0] = a.numRegs;
-    out[4 * i + 1] = (int)a.localSizeBytes;
-    out[4 * i + 2] = (int)a.sharedSizeBytes;
-    out[4 * i + 3] = a.maxThreadsPerBlock;
-  }
-  return 0;
+// The four scan kernels' registers, local and static shared bytes and
+// largest block on the current device (resources.cuh).
+extern "C" int esp_scan_resources(int* out, const char** names, int cap) {
+  const void* fns[] = {(const void*)scan_dense_kernel,
+                       (const void*)scan_flat_kernel,
+                       (const void*)scan_slices_kernel,
+                       (const void*)scan_seq_kernel};
+  const char* kernel_names[] = {"scan_dense_kernel", "scan_flat_kernel",
+                                "scan_slices_kernel", "scan_seq_kernel"};
+  return kernel_resources(fns, kernel_names, 4, out, names, cap);
 }

@@ -288,6 +288,10 @@ def _launch_compose(entry, res, res_shape, recs, active, frames,
     build.check(frames["y"], dev, torch.uint8, (N, 2, H, W))
     build.check(frames["u"], dev, torch.uint8, (N, 2, H // 2, W // 2))
     build.check(frames["v"], dev, torch.uint8, (N, 2, H // 2, W // 2))
+    for t in (res, frames["y"], frames["u"], frames["v"]):
+        if t.data_ptr() % 16:
+            raise ValueError("K3 / K3F move 16-byte vectors: residuals "
+                             "and frames must start 16-byte aligned")
     pres = {k: torch.empty(frames[k].shape[:1] + frames[k].shape[2:],
                            dtype=torch.uint8, device=dev) for k in "yuv"}
     build.launch(entry, res, recs, active, frames["parity"], frames["y"],

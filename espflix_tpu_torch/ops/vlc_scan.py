@@ -219,27 +219,6 @@ def _kernel_tables(lut, zigzag, device):
     return compact_lut(lut)
 
 
-SCAN_KERNELS = ("scan_dense_kernel", "scan_flat_kernel",
-                "scan_slices_kernel", "scan_seq_kernel")
-
-
-def kernel_resources() -> dict:
-    """Registers, local (stack) bytes, static shared bytes and the
-    largest block of each scan kernel (csrc/scan.cu esp_scan_resources,
-    cudaFuncGetAttributes on the library's current device)."""
-    import ctypes
-
-    from espflix_tpu_torch import build
-    out = (ctypes.c_int * (4 * len(SCAN_KERNELS)))()
-    rc = build.library().esp_scan_resources(out)
-    if rc != 0:
-        raise RuntimeError(f"esp_scan_resources: CUDA error {rc}")
-    keys = ("registers", "local_bytes", "static_shared_bytes",
-            "max_threads")
-    return {name: dict(zip(keys, out[4 * i:4 * i + 4]))
-            for i, name in enumerate(SCAN_KERNELS)}
-
-
 @functools.cache
 def _next_block_lut_np():
     """rem(6-bit cbp mask of remaining blocks) -> index of next coded

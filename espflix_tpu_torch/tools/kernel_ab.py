@@ -1,42 +1,77 @@
-"""Time one checkout's kernels on the bench's I-heavy tick, for comparing
-two commits on one card.
+"""Time one checkout's kernels on the bench's ticks, for comparing two
+commits on one card.
 
     python3 espflix_tpu_torch/tools/kernel_ab.py [--tree CHECKOUT] [--label X]
+    python3 espflix_tpu_torch/tools/kernel_ab.py --serve 256 [--tree ...]
 
 imports espflix_tpu_torch from CHECKOUT (default: the checkout that holds
 this file), builds its kernels, and times, at chip_smoke.py's phase-3
 inputs (1,024 lanes of 352x192): K1 (run_scan_bucketed_dense), K1F
-(run_scan_bucketed) and K1S (run_scan); SBC (models/sbc
-.decode_frames_batched on the tick's 13 audio frames a lane: K6 where
-the checkout has it, else the plain form) and K5 (ops/delta_sigma
-.modulate on that PCM from a seeded random state); with K2
-(block_residuals_T) beside them as a control whose code the other work
-does not touch.  Each gets the median of --reps runs by two rulers:
-`call_ms`, the call's latency, the host's enqueue included (chip_smoke
-.py's `ms`), and `device_ms`, the device's work alone (the card sleeps
-while the host enqueues), and a checksum of its outputs.  Prints one
-JSON line with the label, the card's name and power limit, and those
-numbers.  Run it for the two checkouts in the order A, B, B, A in one
-session on the card.  Needs a CUDA card.
+(run_scan_bucketed) and K1S (run_scan) on the I-heavy tick; SBC
+(models/sbc.decode_frames_batched on the tick's 13 audio frames a lane:
+K6 where the checkout has it, else the plain form) and K5
+(ops/delta_sigma.modulate on that PCM from a seeded random state); the
+dense phase on the I-heavy tick (`_I`) and on the P-heavy one (`_P`,
+chip_smoke.py's k_p): K3 (predict_compose_put) on K2's output of K1's
+scan, K2F (block_residuals_flat) on K1F's output in chip_smoke's
+flat_kernels configuration, K3F (predict_compose_put_flat) on K2F's
+output, K3 and K3F onto seeded random frames restored before every run;
+with K2 (block_residuals_T) beside them as a control whose code the
+other work does not touch.  Each gets the median of --reps runs by two
+rulers: `call_ms`, the call's latency, the host's enqueue included
+(chip_smoke.py's `ms`), and `device_ms`, the device's work alone (the
+card sleeps while the host enqueues), and a checksum of its outputs (for
+K3 / K3F the presented planes and the frames).  It also compiles the
+checkout's csrc/compose.cu and csrc/idct.cu with `nvcc -Xptxas -v` and
+reports each dense-phase kernel's registers, stack frame, spill and
+static shared bytes.  Prints one JSON line with the label, the card's
+name and power limit, and those numbers.
+
+With --serve LANES it times decode-only serving instead, as chip_smoke.py's
+decode phase runs it: a service of 2 titles x 4 GOPs behind the local HTTP
+Range server, one warm-up run of 4 ticks, then --ticks ticks pipelined and
+--ticks chunked (K = 4) with two injected faults each, and reports each
+dispatch's wall ms a tick, its Fleet timers and the untimed host rest.
+
+Run it for the two checkouts in the order A, B, B, A in one session on
+the card.  Needs a CUDA card.
 """
 
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import shutil
+import tempfile
 from pathlib import Path
 
 BUSY_CYCLES = 20_000_000    # as chip_smoke.py: ~10 ms at 1,980 MHz
 
 
-def time_ms(fn, reps: int, busy: bool) -> float:
+# the kernels of compose.cu / idct.cu that the ptxas report names, keyed
+# by a part of their mangled names
+PTXAS_KERNELS = {"compose_put_kernelILb0": "compose_put_kernel<false>",
+                 "compose_put_kernelILb1": "compose_put_kernel<true>",
+                 "idct_flat_kernel": "idct_flat_kernel",
+                 "idct_T_kernel": "idct_T_kernel"}
+
+
+def time_ms(fn, reps: int, busy: bool, setup=None) -> float:
+    """Median CUDA-event time of fn() over reps runs after a warm one;
+    setup() (a restore of fn's in-place operands) runs before each run,
+    outside the timed span."""
     import torch
+    if setup:
+        setup()
     fn()
     ts = []
     for _ in range(reps):
         a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if setup:
+            setup()
         if busy:
             torch.cuda._sleep(BUSY_CYCLES)
         a.record()
@@ -51,6 +86,85 @@ def checksum(outs) -> int:
     return sum(int(t.long().sum()) for t in outs)
 
 
+def ptxas_report(tree: str) -> dict:
+    """Registers, stack frame, spill stores / loads and static shared
+    bytes of each PTXAS_KERNELS kernel of the checkout's compose.cu and
+    idct.cu, as `nvcc -Xptxas -v` prints them (the checkout's flags)."""
+    from espflix_tpu_torch import build
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in ("compose.cu", "idct.cu"):
+            proc = subprocess.run(
+                [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+                 "-o", os.path.join(tmp, "k.o"),
+                 os.path.join(tree, "espflix_tpu_torch", "csrc", src)],
+                capture_output=True, text=True, check=True)
+            name = None
+            for line in proc.stderr.splitlines():
+                m = re.search(r"Compiling entry function '(\w+)'", line)
+                if m:
+                    name = next((v for k, v in PTXAS_KERNELS.items()
+                                 if k in m.group(1)), None)
+                    continue
+                if name is None:
+                    continue
+                rep = out.setdefault(name, {})
+                for key, pat in (
+                        ("stack_bytes", r"(\d+) bytes stack frame"),
+                        ("spill_stores", r"(\d+) bytes spill stores"),
+                        ("spill_loads", r"(\d+) bytes spill loads"),
+                        ("registers", r"Used (\d+) registers"),
+                        ("smem_bytes", r"(\d+) bytes smem")):
+                    m = re.search(pat, line)
+                    if m:
+                        rep[key] = int(m.group(1))
+    return out
+
+
+def serve(dev, lanes: int, ticks: int) -> dict:
+    """Decode-only serving of the imported checkout at `lanes` lanes:
+    wall, Fleet timers and untimed host ms a tick for the pipelined and
+    the chunked dispatch."""
+    import torch
+    from espflix_tpu_torch import build
+    from espflix_tpu_torch.tools import serve_scenario as SS
+
+    build.library()
+    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build.BUILD_ROOT)
+    out = {}
+    try:
+        SS.generate_service(root, ["title00", "title01"], seed=0, n_gops=4)
+        url, shutdown = SS.start_http_service(root)
+        try:
+            SS.run_scenario(SS.build_fleet(url, lanes, 2, device=dev), 4,
+                            seed=0, faults=0, dispatch="pipelined")
+            for dispatch in ("pipelined", "chunk"):
+                fleet = SS.build_fleet(url, lanes, 2, device=dev)
+                stats, _ = SS.run_scenario(fleet, ticks, seed=0, faults=2,
+                                           dispatch=dispatch)
+                torch.cuda.synchronize()
+                timers = {k: 1000 * v / ticks
+                          for k, v in fleet.timers.acc.items()}
+                wall = 1000 * stats.wall_s / ticks
+                out[dispatch] = dict(
+                    wall_ms=wall, timers_ms=timers,
+                    untimed_ms=wall - sum(timers.values()),
+                    frames=stats.frames, errors=stats.errors)
+        finally:
+            shutdown()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def card() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=str(Path(__file__).resolve()
@@ -58,6 +172,9 @@ def main() -> int:
     ap.add_argument("--label", default=None)
     ap.add_argument("--lanes", type=int, default=1024)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--serve", type=int, default=0, metavar="LANES",
+                    help="time decode-only serving at LANES lanes instead")
+    ap.add_argument("--ticks", type=int, default=16)
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree          # the checkout's package, not this one's
@@ -68,26 +185,37 @@ def main() -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
+    import espflix_tpu_torch
+    if not espflix_tpu_torch.__file__.startswith(tree):
+        raise SystemExit(f"kernel_ab: imported {espflix_tpu_torch.__file__}"
+                         f", not {tree}")
+    if args.serve:
+        print(json.dumps({"label": args.label or tree, "card": card(),
+                          "lanes": args.serve, "ticks": args.ticks,
+                          "serve": serve(dev, args.serve, args.ticks)}),
+              flush=True)
+        return 0
+
     from espflix_tpu_torch import build
     from espflix_tpu_torch.core import sbc_tables as ST
     from espflix_tpu_torch.models import mpeg1 as M
     from espflix_tpu_torch.models import sbc as dsbc
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
+    from espflix_tpu_torch.ops import mocomp as MC
     from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.runtime import chain as CH
     from espflix_tpu_torch.runtime.scheduler import bucket_policy
     from espflix_tpu_torch.runtime.workload import (bench_chunk,
                                                     bench_pictures)
-    if not VS.__file__.startswith(tree):
-        raise SystemExit(f"kernel_ab: imported {VS.__file__}, not {tree}")
     build.library()
 
     xs_np, kw = bench_chunk(args.lanes)
     bench_ticks, wpl = bench_pictures(args.lanes)
     n_i = ((xs_np["pic_type"] == 1) & (xs_np["alive"] == 1)).sum(axis=1)
     k_i = int(n_i.argmax())
-    x = {k: v[k_i] for k, v in CH.xs_to_torch(xs_np, dev).items()}
+    xs_t = CH.xs_to_torch(xs_np, dev)
+    x = {k: v[k_i] for k, v in xs_t.items()}
     mbw, mbh, N = kw["mb_width"], kw["mb_height"], args.lanes
     chain = CH.FullChain(pal=False, n_aud_frames=kw["n_aud_frames"],
                          device=dev)
@@ -97,14 +225,19 @@ def main() -> int:
     k1_kw = dict({k: kw[k] for k in ("mb_width", "mb_height", "n_lanes",
                                      "long_rows", "steps_long",
                                      "steps_short", "chunk")}, **tables)
+
+    def flat_scan_kw(xt, f_args):
+        """chip_smoke.py flat_kernels' K1F configuration for tick xt."""
+        need = int(((xt["pic_type"] == 1) & (xt["alive"] == 1)).sum())
+        long_rows, s_long, s_short = bucket_policy(
+            max(need, 8), f_args[0].shape[0], steps_long=2048,
+            steps_short=512)
+        return dict(mb_width=mbw, mb_height=mbh, n_lanes=N,
+                    long_rows=long_rows, steps_long=s_long,
+                    steps_short=s_short, chunk=128, **tables)
+
     k1f_args = [x[k] for k in M.SCAN_KEYS]
-    need = int(((x["pic_type"] == 1) & (x["alive"] == 1)).sum())
-    long_rows, s_long, s_short = bucket_policy(
-        max(need, 8), k1f_args[0].shape[0], steps_long=2048,
-        steps_short=512)
-    k1f_kw = dict(mb_width=mbw, mb_height=mbh, n_lanes=N,
-                  long_rows=long_rows, steps_long=s_long,
-                  steps_short=s_short, chunk=128, **tables)
+    k1f_kw = flat_scan_kw(x, k1f_args)
     b = M.make_picture_batch(bench_ticks[k_i], words_per_lane=wpl,
                              max_slices=mbh)
     k1s_args = list(M.xs_to_torch({k: b[k] for k in M.PICTURE_KEYS[:7]},
@@ -139,17 +272,59 @@ def main() -> int:
         "SBC": lambda: dsbc.decode_frames_batched(*sbc_args, **sbc_kw),
         "K5": lambda: DS.modulate(pcm, ds_state, n_samples=F * 128),
     }
+    setups = {}
+    # the dense phase on the I-heavy and the P-heavy tick
+    g = torch.Generator(device="cpu").manual_seed(7)
+    for label, k in (("I", k_i), ("P", int(n_i.argmin()))):
+        xt = {key: v[k] for key, v in xs_t.items()}
+        coeffs_T, recs, nfinal = VS.run_scan_bucketed_dense(
+            *[xt[key] for key in CH.DECODE_KEYS[:9]], **k1_kw)[:3]
+        res_T = IDCT.block_residuals_T(
+            coeffs_T, ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, 1),
+            ((recs >> 2) & 31).repeat_interleave(6, 1), xt["intra_q"],
+            xt["non_intra_q"], nfinal, chain.scale_dct)
+        f_args = [xt[key] for key in M.SCAN_KEYS]
+        coeffs, recs_f, nfinal_f = VS.run_scan_bucketed(
+            *f_args, **flat_scan_kw(xt, f_args))[:3]
+        idct_args = (coeffs, recs_f, nfinal_f, xt["intra_q"],
+                     xt["non_intra_q"], chain.scale_dct)
+        res_f = IDCT.block_residuals_flat(*idct_args)
+        frames0 = M.init_frame_state(N, mbw * 16, mbh * 16, dev)
+        for key in "yuv":
+            frames0[key] = torch.randint(0, 256, frames0[key].shape,
+                                         generator=g,
+                                         dtype=torch.uint8).to(dev)
+        frames0["parity"] = torch.randint(0, 2, (N,), generator=g,
+                                          dtype=torch.int32).to(dev)
+        fr = {key: v.clone() for key, v in frames0.items()}
+
+        def restore(fr=fr, frames0=frames0):
+            for key, v in frames0.items():
+                fr[key].copy_(v)
+
+        def compose(fn, res, recs, active=xt["active"], fr=fr):
+            pres = fn(res, recs, active, fr, mb_width=mbw, mb_height=mbh)
+            return [pres[key] for key in "yuv"] + [fr[key] for key in "yuv"]
+
+        runs[f"K2F_{label}"] = lambda a=idct_args: (
+            IDCT.block_residuals_flat(*a),)
+        for name, fn, res, r in (
+                (f"K3_{label}", MC.predict_compose_put, res_T, recs),
+                (f"K3F_{label}", MC.predict_compose_put_flat, res_f,
+                 recs_f)):
+            runs[name] = lambda fn=fn, res=res, r=r: compose(fn, res, r)
+            setups[name] = restore
     out = {}
     for name, fn in runs.items():
-        out[name] = dict(call_ms=time_ms(fn, args.reps, busy=False),
-                         device_ms=time_ms(fn, args.reps, busy=True),
-                         checksum=checksum(fn()))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(json.dumps({"label": args.label or tree, "card":
-                      smi.stdout.strip().splitlines()[0], "lanes": N,
-                      "reps": args.reps, "kernels": out}), flush=True)
+        setup = setups.get(name)
+        out[name] = dict(call_ms=time_ms(fn, args.reps, False, setup),
+                         device_ms=time_ms(fn, args.reps, True, setup))
+        if setup:
+            setup()
+        out[name]["checksum"] = checksum(fn())
+    print(json.dumps({"label": args.label or tree, "card": card(),
+                      "lanes": N, "reps": args.reps, "kernels": out,
+                      "ptxas": ptxas_report(tree)}), flush=True)
     return 0
 
 
