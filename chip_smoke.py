@@ -14,7 +14,9 @@ line is printed):
    nvcc per source, all at once, and the sessions' native TS demuxer;
    prints the registers, local (stack) bytes and static shared bytes
    (cudaFuncGetAttributes) of each scan kernel, of K3 / K3F
-   (compose_put_kernel<false / true>) and of K2F (idct_flat_kernel);
+   (compose_put_kernel<false / true>), of K2 at each vector width
+   (idct_T_kernel<V>), of K2F (idct_flat_kernel) and of K4
+   (composite_parts_kernel);
 3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
    B over a band), the sequential scan K1S and the SBC decode K6 --
@@ -34,11 +36,14 @@ line is printed):
    resolve_slices) and a second K1S call with corrupt slices, idle
    lanes and a budget that cuts lanes inside a later slice, which
    reports the lanes of its in-order pass; K5's cycles a bit step;
-   K2F, K3 and K3F also checked and timed on the tick with the fewest I
-   pictures (`<key>_p`), and checked on the tests' shared edge case
-   (espflix_tpu_torch/tools/dense_cases.py, 256 lanes: vectors at and
-   past every edge in every half-pel phase, all MB kinds, int16
-   extremes);
+   K2, K2F, K3 and K3F also checked and timed on the tick with the
+   fewest I pictures (`<key>_p`), and checked on the tests' shared edge
+   case (espflix_tpu_torch/tools/dense_cases.py, 256 lanes: vectors at
+   and past every edge in every half-pel phase, all MB kinds, int16
+   extremes); K4 also on the tests' composite edge case
+   (espflix_tpu_torch/tools/composite_cases.py, every blend class,
+   progress at the bar's ends, luma across the dither mask, every
+   chroma value) at the chain's lanes and three fewer, NTSC and PAL;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -702,6 +707,31 @@ def compose_check(label, fn, plain, res, recs, active, rand_frames,
     return pk, stats
 
 
+def idct_T_check(label, coeffs_T, recs, nfinal, xt, chain, reps: int):
+    """K2 against its plain form on K1's output of tick `xt`, then
+    timed.  Returns the kernel's residuals and its numbers (max_abs_err,
+    ms, device_ms, plain_ms, bound_ms, bound_by, yardstick_ms)."""
+    from espflix_tpu_torch.ops import idct as IDCT
+    from espflix_tpu_torch.ops import vlc_scan as VS
+
+    intra_bl = ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1)
+    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
+    idct_args = (coeffs_T, intra_bl, qs_bl, xt["intra_q"],
+                 xt["non_intra_q"], nfinal, chain.scale_dct)
+    res_k = IDCT.block_residuals_T(*idct_args)
+    res_p = IDCT.block_residuals_T_torch(*idct_args)
+    stats = dict(
+        max_abs_err=require_equal(f"K2 idct ({label} tick)",
+                                  [(res_k, res_p)]),
+        **timed(lambda: IDCT.block_residuals_T(*idct_args), reps),
+        plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
+                         reps))
+    stats["bound_ms"], stats["bound_by"] = bound(
+        idct_needed_bytes(nfinal, intra_bl, int((nfinal > 0).sum()) * 5))
+    stats["yardstick_ms"] = bound(nbytes(*idct_args, res_k))[0]
+    return res_k, stats
+
+
 def p_tick_keys(stats: dict) -> dict:
     """A kernel's numbers on the P-heavy tick, as `<key>_p` entries."""
     return {f"{k}_p": stats[k] for k in ("ms", "device_ms", "plain_ms",
@@ -718,6 +748,7 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
     import torch
     from espflix_tpu_torch.ops import idct as IDCT
     from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.tools.dense_cases import dense_case
 
     c = dense_case(17, mbw, mbh, lanes)
@@ -730,6 +761,13 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
         IDCT.block_residuals_flat(*args),
         IDCT.block_residuals_flat_torch(*args))])}
     recs, active = t(c["recs"]), t(c["active"])
+    t_args = (t(c["coeffs_T"]),
+              ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1),
+              ((recs >> 2) & 31).repeat_interleave(6, dim=1), *args[3:],
+              args[2])
+    errs["K2"] = require_equal("K2 idct, edge case", [(
+        IDCT.block_residuals_T(*t_args),
+        IDCT.block_residuals_T_torch(*t_args))])
     for name, fn, plain, key in (
             ("K3", MC.predict_compose_put, MC.predict_compose_put_torch,
              "res_T"),
@@ -747,6 +785,39 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
     log(f"[kernel] edge case ({lanes} lanes, {mbw}x{mbh} MBs): max |err| "
         f"{errs}")
     return errs
+
+
+def composite_edge_case(dev, lanes: int) -> int:
+    """K4 against its plain form on the tests' shared edge case
+    (tools/composite_cases.py: every blend class, progress at the bar's
+    ends, both parities, luma across the dither mask, every chroma
+    value) at `lanes` lanes and at lanes - 3 (not a multiple of the
+    kernel's eight lanes a block), NTSC and PAL.  Returns the max
+    |err|."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.ops import composite as CO
+    from espflix_tpu_torch.tools.composite_cases import ARGS, composite_case
+
+    c = composite_case(23, lanes)
+    err = 0
+    for n in (lanes, lanes - 3):
+        a = [torch.from_numpy(np.ascontiguousarray(c[k][:n])).to(dev)
+             for k in ARGS]
+        for pal in (False, True):
+            tmpl, dith, _g = CO._packed_consts(pal)
+            kw = dict(pal=pal, tmpl=torch.from_numpy(tmpl).to(dev),
+                      dither=torch.from_numpy(
+                          np.ascontiguousarray(dith)).to(dev))
+            err = max(err, require_equal(
+                f"K4 composite, edge case ({n} lanes, "
+                f"{'PAL' if pal else 'NTSC'})",
+                zip(CO.synthesize_field_pair_parts(*a, **kw),
+                    CO.synthesize_field_pair_parts_torch(*a, **kw))))
+    torch.cuda.synchronize()
+    log(f"[kernel] K4 edge case ({lanes} and {lanes - 3} lanes, NTSC and "
+        f"PAL): max |err| {err}")
+    return err
 
 
 def flat_kernels(x, x_p, chain, rand_frames, reps: int, mbw: int,
@@ -1441,25 +1512,8 @@ def main() -> int:
         f"steps x {SCAN_STEP_CYCLES} cycles)")
 
     coeffs_T, recs, nfinal = got[:3]
-    intra_bl = ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1)
-    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
-    idct_args = (coeffs_T, intra_bl, qs_bl, x["intra_q"],
-                 x["non_intra_q"], nfinal, chain.scale_dct)
-    res_k = IDCT.block_residuals_T(*idct_args)
-    res_p = IDCT.block_residuals_T_torch(*idct_args)
-    kernels.append(dict(
-        name="K2_dequant_idct", route="cuda",
-        source="espflix_tpu_torch/csrc/idct.cu",
-        replaces="espflix_tpu/ops/idct_pallas.py:171",
-        max_abs_err=require_equal("K2 idct", [(res_k, res_p)]),
-        library_ms=None,
-        **timed(lambda: IDCT.block_residuals_T(*idct_args), args.reps),
-        plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
-                         args.reps)))
-    kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(
-        idct_needed_bytes(nfinal, intra_bl, int((nfinal > 0).sum()) * 5))
-    kernels[-1]["yardstick_ms"] = bound(nbytes(*idct_args, res_k))[0]
-    log(f"[kernel] {kernels[-1]}")
+    res_k, k2_i = idct_T_check("I", coeffs_T, recs, nfinal, x, chain,
+                               args.reps)
 
     # K3 on K2's output of the I-heavy tick, then of the P-heavy one,
     # with random reference planes and parities
@@ -1483,10 +1537,16 @@ def main() -> int:
                              active, rand_frames, mbw, mbh, args.reps)
     coeffs_p, recs_p, nfinal_p = VS.run_scan_bucketed_dense(
         *[x_p[k] for k in CH.DECODE_KEYS[:9]], **scan_kw)[:3]
-    res_k_p = IDCT.block_residuals_T(
-        coeffs_p, ((recs_p & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1),
-        ((recs_p >> 2) & 31).repeat_interleave(6, dim=1), x_p["intra_q"],
-        x_p["non_intra_q"], nfinal_p, chain.scale_dct)
+    res_k_p, k2_p = idct_T_check("P", coeffs_p, recs_p, nfinal_p, x_p,
+                                 chain, args.reps)
+    kernels.append(dict(
+        name="K2_dequant_idct", route="cuda",
+        source="espflix_tpu_torch/csrc/idct.cu",
+        replaces="espflix_tpu/ops/idct_pallas.py:171", library_ms=None,
+        **k2_i, **p_tick_keys(k2_p)))
+    kernels[-1]["max_abs_err"] = max(k2_i["max_abs_err"],
+                                     k2_p["max_abs_err"])
+    log(f"[kernel] {kernels[-1]}")
     active_p = x_p["active"].clone()
     active_p[::17] = False
     _pk, k3_p = compose_check("K3 compose (P tick)", MC.predict_compose_put,
@@ -1524,6 +1584,8 @@ def main() -> int:
     kernels[-1]["bound_ms"], kernels[-1]["bound_by"] = bound(nbytes(
         *comp_args, chain.templates, chain.dither, *ck))
     log(f"[kernel] {kernels[-1]}")
+    kernels[-1]["max_abs_err"] = max(
+        kernels[-1]["max_abs_err"], composite_edge_case(dev, N))
 
     # K6 on the tick's 13 SBC frames a lane, then on varied audio
     entry, pcm = sbc_kernel(x, kw["n_aud_frames"], dev, args.reps,

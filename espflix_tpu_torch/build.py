@@ -48,7 +48,7 @@ SIGNATURES = {
 # entry points that report cudaFuncGetAttributes figures of their
 # source's kernels (csrc/resources.cuh)
 RESOURCES = ("esp_scan_resources", "esp_compose_resources",
-             "esp_idct_resources")
+             "esp_idct_resources", "esp_composite_resources")
 MAX_RESOURCE_KERNELS = 8                # kernels an entry may report
 
 _lib = None

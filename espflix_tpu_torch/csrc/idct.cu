@@ -6,13 +6,31 @@
 // What bounds it on an H100: memory.  Per 8x8 block it reads 64 int16
 // levels and writes 64 int16 residuals (256 B) for ~1k integer ops, far
 // below the card's ops:byte balance.  The TPU kernel kept one lane's
-// [64, BL] tile in VMEM and ran the butterflies as (8, BL) slab ops;
-// here one thread owns one block: with BL on the fastest axis,
-// consecutive threads read and write consecutive int16 of each
-// position row (coalesced), the block's 64 values stay in registers
-// through dequant and both butterfly passes, and uncoded blocks
-// (nfinal == 0) skip the loads and write zeros.  The lane's two
-// quantizer matrices sit in shared memory.
+// [64, BL] tile in VMEM and ran the butterflies as (8, BL) slab ops.
+// Here a CTA of 128 threads takes a tile of TB = 64 consecutive blocks
+// of one lane:
+//
+//   * it copies the tile's [64, TB] levels into shared memory with
+//     cp.async, so that no register holds them (39 registers, twelve
+//     CTAs an SM), in the widest vector that BL's and the pointers'
+//     alignment allow (V of 8, 4, 2 or 1 int16, a template parameter),
+//     while it reads the tile's nfinal, intra flags and qscales;
+//   * the blocks that run the butterflies (coded, not a DC shortcut) go
+//     into a list, and each warp takes four listed blocks at a time:
+//     K2F's scheme from the tile, thread j dequantising column j (a
+//     row of levels that is zero in all four blocks costs one vote)
+//     and running the column pass, an 8 x 9 int32 tile, the row pass
+//     on row j and the residuals back into the level tile.  On the
+//     bench's I- and P-heavy ticks 31% and 24% of the blocks are
+//     listed, while 62% and 58% of the warps of four consecutive blocks
+//     held one;
+//   * the residual tile goes out with the same vector stores, 0 or the
+//     DC in place of each block that ran no butterflies.
+//
+// Reading only the levels the listed blocks need puts a dependent load
+// before the copy, and measured slower than reading them all.  The
+// tile's rows are TS = TB + 8 int16: 16-byte rows for the copies, and a
+// warp's column accesses fall in distinct banks.
 //
 // Bit-exact with idct_pallas.py:180-207 and idct.block_residuals_T:
 // doubling + oddification + truncating /16, the +-2048 clip, intra DC
@@ -40,6 +58,7 @@
 // coalesced zero stores, the DC shortcut one broadcast load.
 
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 #include "resources.cuh"
@@ -86,68 +105,241 @@ __device__ __forceinline__ int dequant(int lev, int p, bool intra, int qs,
   return (intra && p == 0) ? lev * 256 : q * sc[p];
 }
 
-// both butterfly passes in place over b[8r + j]: columns, then rows
-// with the final rounding
-__device__ __forceinline__ void idct_8x8(int b[64]) {
-  int c[8], o[8];
-  for (int j = 0; j < 8; ++j) {          // column pass: b[8r + j] over r
-    for (int r = 0; r < 8; ++r) c[r] = b[8 * r + j];
-    butterfly(c, o, false);
-    for (int k = 0; k < 8; ++k) b[8 * k + j] = o[k];
-  }
-  for (int r = 0; r < 8; ++r) {          // row pass: b[8r + j] over j
-    for (int j = 0; j < 8; ++j) c[j] = b[8 * r + j];
-    butterfly(c, o, true);
-    for (int m = 0; m < 8; ++m) b[8 * r + m] = o[m];
+// K2: a CTA a tile of TB blocks of one lane, T_THREADS threads, eight a
+// block in the butterflies (four blocks a warp).
+constexpr int TILE = 72;       // int32 a group's transpose tile: 8 x 9
+constexpr int T_THREADS = 128;
+constexpr int WARPS = T_THREADS / 32;
+constexpr int TB = 64;                  // blocks (bl) a tile
+constexpr int TS = TB + 8;              // int16 a tile row: 36 words
+static_assert(TB % 32 == 0 && TB <= T_THREADS, "a warp's flags a word");
+
+// a tile's V-element vectors, PER a thread: thread t takes vectors
+// t, t + T_THREADS, ...; vector i is position i / VPR's blocks
+// e .. e + V - 1, e = (i % VPR) * V
+template <int V> struct TileVecs {
+  static constexpr int VPR = TB / V;    // vectors a tile row
+  static constexpr int PER = 64 * VPR / T_THREADS;
+  static_assert(64 * VPR % T_THREADS == 0, "whole vectors a thread");
+};
+
+// V int16 in 32-bit words (V = 1: one word, its low half)
+template <int V> struct Words {
+  static constexpr int N = V < 2 ? 1 : V / 2;
+  uint32_t w[N];
+};
+
+// V int16 to global memory, one access of 2 V bytes
+template <int V>
+__device__ __forceinline__ void store_vec(int16_t* p, const Words<V>& r) {
+  if constexpr (V == 8) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+  } else if constexpr (V == 4) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(r.w[0], r.w[1]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<uint32_t*>(p) = r.w[0];
+  } else {
+    *reinterpret_cast<uint16_t*>(p) = (uint16_t)r.w[0];
   }
 }
 
-__global__ void idct_T_kernel(const int16_t* __restrict__ coeffs_T,
-                              const uint8_t* __restrict__ intra_bl,
-                              const int* __restrict__ qs_bl,
-                              const int* __restrict__ intra_q,
-                              const int* __restrict__ non_intra_q,
-                              const int* __restrict__ nfinal,
-                              const int* __restrict__ scale,
-                              int16_t* __restrict__ out, int BL) {
-  __shared__ int qm[2][64];
+// V int16 from shared memory at an element offset that is a multiple of
+// V: one access of 2 V bytes
+template <int V>
+__device__ __forceinline__ Words<V> get_words(const int16_t* src) {
+  Words<V> r;
+  if constexpr (V == 8) {
+    const uint4 x = *reinterpret_cast<const uint4*>(src);
+    r.w[0] = x.x; r.w[1] = x.y; r.w[2] = x.z; r.w[3] = x.w;
+  } else if constexpr (V == 4) {
+    const uint2 x = *reinterpret_cast<const uint2*>(src);
+    r.w[0] = x.x; r.w[1] = x.y;
+  } else if constexpr (V == 2) {
+    r.w[0] = *reinterpret_cast<const uint32_t*>(src);
+  } else {
+    r.w[0] = (uint16_t)*src;
+  }
+  return r;
+}
+
+// V int16 from global into shared memory without a register: an
+// asynchronous copy for V >= 2 (both addresses aligned to its 2 V
+// bytes), a load and a store for V = 1; copy_wait() waits for this
+// thread's copies
+template <int V>
+__device__ __forceinline__ void copy_in(int16_t* dst, const int16_t* src) {
+  if constexpr (V == 1) {
+    *dst = *src;
+  } else {
+#ifdef __CUDA_ARCH__
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    if constexpr (V == 8)
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                   "l"(src));
+    else
+      asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                   "l"(src), "n"(2 * V));
+#else
+    memcpy(dst, src, 2 * V);
+#endif
+  }
+}
+
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+template <int V>
+__global__ void __launch_bounds__(T_THREADS)
+    idct_T_kernel(const int16_t* __restrict__ coeffs_T,
+                  const uint8_t* __restrict__ intra_bl,
+                  const int* __restrict__ qs_bl,
+                  const int* __restrict__ intra_q,
+                  const int* __restrict__ non_intra_q,
+                  const int* __restrict__ nfinal,
+                  const int* __restrict__ scale,
+                  int16_t* __restrict__ out, int BL) {
+  using TV = TileVecs<V>;
+  // non-intra matrix at 0, intra at TILE: other banks for the 8 offset
+  __shared__ int qm[TILE + 64];
   __shared__ int sc[64];
-  const int n = blockIdx.y;
-  for (int i = threadIdx.x; i < 64; i += blockDim.x) {
-    qm[0][i] = non_intra_q[n * 64 + i];
-    qm[1][i] = intra_q[n * 64 + i];
+  __shared__ __align__(16) int16_t lv[64 * TS];  // levels, then residuals
+  __shared__ int tiles[T_THREADS / 8 * TILE];
+  __shared__ int qs_s[TB];
+  __shared__ uint8_t intra_s[TB];
+  // the residual of a block without butterflies: 0, or its DC
+  __shared__ __align__(16) int16_t fill[TB];
+  // bit b: block b runs the butterflies; the tile's such blocks in order
+  __shared__ uint32_t full_s[TB / 32];
+  __shared__ uint8_t list[TB];
+  const int n = blockIdx.y, bl0 = blockIdx.x * TB, t = threadIdx.x;
+
+  // the tile's levels, every vector inside the lane's rows, straight
+  // into the tile (V divides BL, so a vector lies wholly inside or past
+  // its row), while the flags load
+  const int16_t* src = coeffs_T + (size_t)n * 64 * BL + bl0;
+#pragma unroll
+  for (int q = 0; q < TV::PER; ++q) {
+    const int i = t + q * T_THREADS;
+    const int p = i / TV::VPR, e = (i % TV::VPR) * V;
+    if (bl0 + e < BL) copy_in<V>(lv + p * TS + e, src + (size_t)p * BL + e);
+  }
+  for (int i = t; i < 64; i += T_THREADS) {
+    qm[i] = non_intra_q[n * 64 + i];
+    qm[TILE + i] = intra_q[n * 64 + i];
     sc[i] = scale[i];
   }
+  int nf = 0;
+  bool full = false;
+  if (t < TB) {
+    const int bl = bl0 + t;
+    int qs = 0;
+    bool intra = false;
+    if (bl < BL) {
+      const size_t i = (size_t)n * BL + bl;
+      nf = nfinal[i];
+      intra = intra_bl[i] != 0;
+      qs = qs_bl[i];
+    }
+    qs_s[t] = qs;
+    intra_s[t] = intra;
+    full = nf != 0 && !(nf == 1 && !intra);
+    const uint32_t m = __ballot_sync(0xFFFFFFFFu, full);
+    if ((t & 31) == 0) full_s[t >> 5] = m;
+  }
+  copy_wait();
   __syncthreads();
-  const int bl = blockIdx.x * blockDim.x + threadIdx.x;
-  if (bl >= BL) return;
-  const size_t base = (size_t)n * 64 * BL + bl;
-  const int nf = nfinal[(size_t)n * BL + bl];
-  if (nf == 0) {
-    for (int p = 0; p < 64; ++p) out[base + (size_t)p * BL] = 0;
-    return;
-  }
-  const bool intra = intra_bl[(size_t)n * BL + bl] != 0;
-  const int qs = qs_bl[(size_t)n * BL + bl];
-  const int* qmat = qm[intra ? 1 : 0];
 
-  int b[64];
-  for (int p = 0; p < 64; ++p)
-    b[p] = dequant(coeffs_T[base + (size_t)p * BL], p, intra, qs, qmat, sc);
-  if (nf == 1 && !intra) {
-    const int16_t dc = (int16_t)(b[0] >> 8);
-    for (int p = 0; p < 64; ++p) out[base + (size_t)p * BL] = dc;
-    return;
+  int nfull = 0;
+#pragma unroll
+  for (int k = 0; k < TB / 32; ++k) nfull += __popc(full_s[k]);
+  if (t < TB) {
+    if (full) {
+      int pos = __popc(full_s[t >> 5] & ((1u << (t & 31)) - 1));
+      for (int k = 0; k < (t >> 5); ++k) pos += __popc(full_s[k]);
+      list[pos] = t;
+    }
+    // an uncoded block's residuals are 0, a DC shortcut's its DC
+    fill[t] = nf == 1 && !full
+                  ? (int16_t)(dequant(lv[t], 0, false, qs_s[t], qm, sc) >> 8)
+                  : 0;
   }
-  idct_8x8(b);
-  for (int p = 0; p < 64; ++p) out[base + (size_t)p * BL] = (int16_t)b[p];
+  __syncthreads();
+
+  // the butterflies, four listed blocks a warp at a time: thread j of
+  // the warp's group g4 takes column j, then row j, of block
+  // list[base + g4]; a group past the list repeats the warp's first
+  // block and stores nothing, so that the warp stays converged
+  const int g4 = (t >> 3) & 3, j = t & 7;
+  int* tt = tiles + (t >> 3) * TILE;
+#pragma unroll 1
+  for (int base = (t >> 5) * 4; base < nfull; base += WARPS * 4) {
+    const bool active = base + g4 < nfull;
+    const int b = list[active ? base + g4 : base];
+    int16_t* col = lv + b;                    // (p, b) at col[p * TS]
+    const int qs = qs_s[b];
+    const bool intra = intra_s[b];
+    const int* qmat = qm + (intra ? TILE : 0);
+    int c[8], o[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int lev = col[(8 * r + j) * TS];
+      // a zero level dequantises to 0 (an intra DC too)
+      c[r] = __any_sync(0xFFFFFFFFu, lev != 0)
+                 ? dequant(lev, 8 * r + j, intra, qs, qmat, sc)
+                 : 0;
+    }
+    butterfly(c, o, false);                   // column j, rows k
+#pragma unroll
+    for (int k = 0; k < 8; ++k) tt[9 * k + j] = o[k];
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 8; ++m) c[m] = tt[9 * j + m];
+    __syncwarp();                             // tt is free for the next
+    butterfly(c, o, true);                    // row j, final rounding
+    // back to column j through tt: the tile's column stores fall in
+    // distinct banks, its row stores would not
+#pragma unroll
+    for (int m = 0; m < 8; ++m) tt[9 * j + m] = o[m];
+    __syncwarp();
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        col[(8 * k + j) * TS] = (int16_t)tt[9 * k + j];
+    }
+    __syncwarp();                             // tt is free for the next
+  }
+  __syncthreads();
+
+  // out: the butterflies' residuals where a block ran them, else its
+  // fill value, 16 bits at a time
+  int16_t* dst = out + (size_t)n * 64 * BL + bl0;
+#pragma unroll
+  for (int q = 0; q < TV::PER; ++q) {
+    const int i = t + q * T_THREADS;
+    const int p = i / TV::VPR, e = (i % TV::VPR) * V;
+    if (bl0 + e < BL) {
+      const Words<V> res = get_words<V>(lv + p * TS + e);
+      const Words<V> fw = get_words<V>(fill + e);
+      const uint32_t bits = full_s[e >> 5] >> (e & 31);
+      Words<V> r;
+#pragma unroll
+      for (int k = 0; k < Words<V>::N; ++k) {
+        const uint32_t keep = (bits >> (2 * k) & 1 ? 0xFFFFu : 0) |
+                              (bits >> (2 * k + 1) & 1 ? 0xFFFF0000u : 0);
+        r.w[k] = (res.w[k] & keep) | (fw.w[k] & ~keep);
+      }
+      store_vec<V>(dst + (size_t)p * BL + e, r);
+    }
+  }
 }
 
 // K2F: eight threads a block (a block's group), four blocks a warp;
 // thread j of a group holds column j, then row j, in registers.  Intra
 // flag and qscale come from the block's MB record.
 constexpr int FLAT_THREADS = 128;
-constexpr int TILE = 72;       // int32 a group's transpose tile: 8 x 9
 
 __global__ void __launch_bounds__(FLAT_THREADS)
     idct_flat_kernel(const int16_t* __restrict__ coeffs,
@@ -219,9 +411,16 @@ extern "C" int esp_idct_T(const void* coeffs_T, const void* intra_bl,
                           const void* non_intra_q, const void* nfinal,
                           const void* scale, void* out, int N, int BL,
                           void* stream) {
-  const int threads = 128;
-  dim3 grid((BL + threads - 1) / threads, N);
-  idct_T_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  if (N == 0 || BL == 0) return (int)cudaSuccess;
+  // the widest vector that every row start of both tensors allows
+  const uintptr_t a = (uintptr_t)coeffs_T | (uintptr_t)out |
+                      (uintptr_t)BL * sizeof(int16_t);
+  const auto kernel = a % 16 == 0 ? idct_T_kernel<8>
+                      : a % 8 == 0 ? idct_T_kernel<4>
+                      : a % 4 == 0 ? idct_T_kernel<2>
+                                   : idct_T_kernel<1>;
+  dim3 grid((BL + TB - 1) / TB, N);
+  kernel<<<grid, T_THREADS, 0, (cudaStream_t)stream>>>(
       (const int16_t*)coeffs_T, (const uint8_t*)intra_bl,
       (const int*)qs_bl, (const int*)intra_q, (const int*)non_intra_q,
       (const int*)nfinal, (const int*)scale, (int16_t*)out, BL);
@@ -241,10 +440,15 @@ extern "C" int esp_idct_flat(const void* coeffs, const void* recs,
   return (int)cudaGetLastError();
 }
 
-// K2F's registers, local and static shared bytes and largest block on
-// the current device (resources.cuh).
+// K2's (at each vector width) and K2F's registers, local and static
+// shared bytes and largest block on the current device (resources.cuh).
 extern "C" int esp_idct_resources(int* out, const char** names, int cap) {
-  const void* fns[] = {(const void*)idct_flat_kernel};
-  const char* kernel_names[] = {"idct_flat_kernel"};
-  return kernel_resources(fns, kernel_names, 1, out, names, cap);
+  const void* fns[] = {
+      (const void*)idct_T_kernel<8>, (const void*)idct_T_kernel<4>,
+      (const void*)idct_T_kernel<2>, (const void*)idct_T_kernel<1>,
+      (const void*)idct_flat_kernel};
+  const char* kernel_names[] = {"idct_T_kernel<8>", "idct_T_kernel<4>",
+                                "idct_T_kernel<2>", "idct_T_kernel<1>",
+                                "idct_flat_kernel"};
+  return kernel_resources(fns, kernel_names, 5, out, names, cap);
 }

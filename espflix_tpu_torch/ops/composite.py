@@ -130,6 +130,25 @@ def _prep(c):
     return ci.repeat_interleave(2, dim=2)
 
 
+@functools.cache
+def chroma_words() -> np.ndarray:
+    """K4's chroma table (csrc/composite.cu `cwords`), plain form:
+    uint32[2, 256].  For a prepped 8-bit chroma sample c, word 0 is
+    cp(c) | cm(c) << 16 and word 1 the same halves swapped, where cm and
+    cp are the chroma words ((clip127(bias -/+ amp(c)) + bias) & 0xFC)
+    >> 2 that _kernel_parts derives from a sample: cw0 / cw1 of u, cw2 /
+    cw3 of v, which the PAL V-switch swaps.  So an (even, odd) pixel
+    pair takes cxb = word 0 of its u sample and cxa = word 0 of its v
+    sample, word 1 on a V-switch line."""
+    c = np.arange(256)
+    m = (128 - c) * T.BLACK_LEVEL
+    amp = np.sign(m) * (((2 * np.abs(m) + 33) * 3972) >> 18)
+    bias = 2 * T.BLACK_LEVEL
+    cm = ((np.clip(bias - amp, 0, 127) + bias) & 0xFC) >> 2
+    cp = ((np.clip(bias + amp, 0, 127) + bias) & 0xFC) >> 2
+    return np.stack([cp | cm << 16, cm | cp << 16]).astype(np.uint32)
+
+
 def synthesize_field_pair_parts_torch(y, u, v, frame_parity, osd,
                                       osd_blend, osd_progress, *,
                                       pal: bool, tmpl, dither):
@@ -217,7 +236,8 @@ def synthesize_field_pair_parts(y, u, v, frame_parity, osd, osd_blend,
     on the same device.  Returns (act int16[N, 2, 192, 352], strip
     int16[N, 16, W2], chk int32[N] incl. the template base).  CPU
     tensors take the plain form; CUDA tensors launch K4
-    (csrc/composite.cu)."""
+    (csrc/composite.cu: four pixels of a row a thread, eight lanes a
+    block, the chroma chain as the table chroma_words())."""
     global launches
     if y.device.type == "cpu":
         return synthesize_field_pair_parts_torch(

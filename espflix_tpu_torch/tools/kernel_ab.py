@@ -12,20 +12,23 @@ inputs (1,024 lanes of 352x192): K1 (run_scan_bucketed_dense), K1F
 K6 where the checkout has it, else the plain form) and K5
 (ops/delta_sigma.modulate on that PCM from a seeded random state); the
 dense phase on the I-heavy tick (`_I`) and on the P-heavy one (`_P`,
-chip_smoke.py's k_p): K3 (predict_compose_put) on K2's output of K1's
-scan, K2F (block_residuals_flat) on K1F's output in chip_smoke's
-flat_kernels configuration, K3F (predict_compose_put_flat) on K2F's
-output, K3 and K3F onto seeded random frames restored before every run;
-with K2 (block_residuals_T) beside them as a control whose code the
-other work does not touch.  Each gets the median of --reps runs by two
-rulers: `call_ms`, the call's latency, the host's enqueue included
-(chip_smoke.py's `ms`), and `device_ms`, the device's work alone (the
-card sleeps while the host enqueues), and a checksum of its outputs (for
-K3 / K3F the presented planes and the frames).  It also compiles the
-checkout's csrc/compose.cu and csrc/idct.cu with `nvcc -Xptxas -v` and
-reports each dense-phase kernel's registers, stack frame, spill and
-static shared bytes.  Prints one JSON line with the label, the card's
-name and power limit, and those numbers.
+chip_smoke.py's k_p): K2 (block_residuals_T) on K1's scan, K3
+(predict_compose_put) on K2's output, K2F (block_residuals_flat) on
+K1F's output in chip_smoke's flat_kernels configuration, K3F
+(predict_compose_put_flat) on K2F's output, K3 and K3F onto seeded
+random frames restored before every run; and K4
+(composite.synthesize_field_pair_parts, NTSC and PAL) on K3's
+presented planes of the I-heavy tick, as chip_smoke.py's phase 3 feeds
+it.  K1 and K3F are the controls where a change touches K2 and K4.
+Each gets the median of --reps runs by two rulers: `call_ms`, the
+call's latency, the host's enqueue included (chip_smoke.py's `ms`), and
+`device_ms`, the device's work alone (the card sleeps while the host
+enqueues), and a checksum of its outputs (for K3 / K3F the presented
+planes and the frames).  It also compiles the checkout's
+csrc/compose.cu, idct.cu and composite.cu with `nvcc -Xptxas -v` and
+reports each dense-phase kernel's and K4's registers, stack frame,
+spill and static shared bytes.  Prints one JSON line with the label,
+the card's name and power limit, and those numbers.
 
 With --serve LANES it times decode-only serving instead, as chip_smoke.py's
 decode phase runs it: a service of 2 titles x 4 GOPs behind the local HTTP
@@ -51,12 +54,17 @@ from pathlib import Path
 BUSY_CYCLES = 20_000_000    # as chip_smoke.py: ~10 ms at 1,980 MHz
 
 
-# the kernels of compose.cu / idct.cu that the ptxas report names, keyed
-# by a part of their mangled names
+# the kernels of compose.cu / idct.cu / composite.cu that the ptxas
+# report names, keyed by a part of their mangled names (a checkout's K2
+# is either a plain kernel or a template on its vector width, of which
+# the bench takes 8)
+PTXAS_SOURCES = ("compose.cu", "idct.cu", "composite.cu")
 PTXAS_KERNELS = {"compose_put_kernelILb0": "compose_put_kernel<false>",
                  "compose_put_kernelILb1": "compose_put_kernel<true>",
                  "idct_flat_kernel": "idct_flat_kernel",
-                 "idct_T_kernel": "idct_T_kernel"}
+                 "idct_T_kernelE": "idct_T_kernel",
+                 "idct_T_kernelILi8E": "idct_T_kernel<8>",
+                 "composite_parts_kernel": "composite_parts_kernel"}
 
 
 def time_ms(fn, reps: int, busy: bool, setup=None) -> float:
@@ -88,12 +96,12 @@ def checksum(outs) -> int:
 
 def ptxas_report(tree: str) -> dict:
     """Registers, stack frame, spill stores / loads and static shared
-    bytes of each PTXAS_KERNELS kernel of the checkout's compose.cu and
-    idct.cu, as `nvcc -Xptxas -v` prints them (the checkout's flags)."""
+    bytes of each PTXAS_KERNELS kernel of the checkout's PTXAS_SOURCES,
+    as `nvcc -Xptxas -v` prints them (the checkout's flags)."""
     from espflix_tpu_torch import build
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for src in ("compose.cu", "idct.cu"):
+        for src in PTXAS_SOURCES:
             proc = subprocess.run(
                 [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
                  "-o", os.path.join(tmp, "k.o"),
@@ -200,6 +208,7 @@ def main() -> int:
     from espflix_tpu_torch.core import sbc_tables as ST
     from espflix_tpu_torch.models import mpeg1 as M
     from espflix_tpu_torch.models import sbc as dsbc
+    from espflix_tpu_torch.ops import composite as CO
     from espflix_tpu_torch.ops import delta_sigma as DS
     from espflix_tpu_torch.ops import idct as IDCT
     from espflix_tpu_torch.ops import mocomp as MC
@@ -244,13 +253,6 @@ def main() -> int:
                                   dev).values())
     k1s_kw = dict(mb_width=mbw, mb_height=mbh, max_steps=12000, **tables)
 
-    coeffs_T, recs, nfinal = VS.run_scan_bucketed_dense(*k1_args,
-                                                        **k1_kw)[:3]
-    intra_bl = ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1)
-    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
-    k2_args = (coeffs_T, intra_bl, qs_bl, x["intra_q"], x["non_intra_q"],
-               nfinal, chain.scale_dct)
-
     F = kw["n_aud_frames"]
     sbc_args = (x["aud_words"], dsbc.init_state(N, dev))
     sbc_kw = dict(active=x["aud_act"], n_valid=x["aud_nval"], n_frames=F,
@@ -268,7 +270,6 @@ def main() -> int:
         "K1": lambda: VS.run_scan_bucketed_dense(*k1_args, **k1_kw),
         "K1F": lambda: VS.run_scan_bucketed(*k1f_args, **k1f_kw),
         "K1S": lambda: VS.run_scan(*k1s_args, **k1s_kw),
-        "K2": lambda: (IDCT.block_residuals_T(*k2_args),),
         "SBC": lambda: dsbc.decode_frames_batched(*sbc_args, **sbc_kw),
         "K5": lambda: DS.modulate(pcm, ds_state, n_samples=F * 128),
     }
@@ -279,10 +280,14 @@ def main() -> int:
         xt = {key: v[k] for key, v in xs_t.items()}
         coeffs_T, recs, nfinal = VS.run_scan_bucketed_dense(
             *[xt[key] for key in CH.DECODE_KEYS[:9]], **k1_kw)[:3]
-        res_T = IDCT.block_residuals_T(
-            coeffs_T, ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, 1),
-            ((recs >> 2) & 31).repeat_interleave(6, 1), xt["intra_q"],
-            xt["non_intra_q"], nfinal, chain.scale_dct)
+        k2_args = (coeffs_T,
+                   ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, 1),
+                   ((recs >> 2) & 31).repeat_interleave(6, 1),
+                   xt["intra_q"], xt["non_intra_q"], nfinal,
+                   chain.scale_dct)
+        res_T = IDCT.block_residuals_T(*k2_args)
+        runs[f"K2_{label}"] = lambda a=k2_args: (
+            IDCT.block_residuals_T(*a),)
         f_args = [xt[key] for key in M.SCAN_KEYS]
         coeffs, recs_f, nfinal_f = VS.run_scan_bucketed(
             *f_args, **flat_scan_kw(xt, f_args))[:3]
@@ -314,6 +319,18 @@ def main() -> int:
                  recs_f)):
             runs[name] = lambda fn=fn, res=res, r=r: compose(fn, res, r)
             setups[name] = restore
+        if label == "I":
+            # K4 on K3's presented planes of this tick, as chip_smoke.py
+            restore()
+            pres = compose(MC.predict_compose_put, res_T, recs)[:3]
+            comp_args = (*pres, xt["parity"], xt["osd"], xt["blend"],
+                         xt["progress"])
+            for std, pal in (("NTSC", False), ("PAL", True)):
+                consts = CH.FullChain(pal=pal, n_aud_frames=1, device=dev)
+                runs[f"K4_{std}"] = lambda c=consts, pal=pal: \
+                    CO.synthesize_field_pair_parts(
+                        *comp_args, pal=pal, tmpl=c.templates,
+                        dither=c.dither)
     out = {}
     for name, fn in runs.items():
         setup = setups.get(name)

@@ -17,8 +17,8 @@ levels and residuals -- goes through:
     packedp(accum=True), the TPU path's K3 kernels, in interpret mode
     (they take planes up to 383 pixels wide: mb_width 1 and 22) against
     the port's prediction with the case's vectors;
-  * on the card (`gpu`): K2F, K3 and K3F against their plain forms on
-    the case's levels and residuals, and the dense phase through the
+  * on the card (`gpu`): K2, K2F, K3 and K3F against their plain forms
+    on the case's levels and residuals, and the dense phase through the
     kernels against the plain dense phase.
 """
 
@@ -173,6 +173,21 @@ def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_idct_T_kernel_matches_plain_on_card(shape):
+    """K2 alone on the case's transposed levels: BL 18, 396 and 768 take
+    its 4-, 8- and 16-byte vectors, BL 18 and 396 a ragged last tile."""
+    dev = _card()
+    c = _case(shape)
+    intra = np.repeat((c["recs"] & 3) == 3, 6, axis=1)
+    qs = np.repeat((c["recs"] >> 2) & 31, 6, axis=1).astype(np.int32)
+    args = [c["coeffs_T"], intra, qs, c["iq"], c["nq"], c["nfinal"]]
+    got = TI.block_residuals_T(*[_t(a, dev) for a in args])
+    assert torch.equal(got.cpu(), TI.block_residuals_T_torch(
+        *[_t(a) for a in args]))
 
 
 @pytest.mark.gpu
