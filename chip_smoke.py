@@ -15,8 +15,9 @@ line is printed):
    prints the registers, local (stack) bytes and static shared bytes
    (cudaFuncGetAttributes) of each scan kernel, of K3 / K3F
    (compose_put_kernel<false / true>), of K2 at each vector width
-   (idct_T_kernel<V>), of K2F (idct_flat_kernel) and of K4
-   (composite_parts_kernel);
+   (idct_T_kernel<V>), of K2F (idct_flat_kernel), of K3P
+   (predict_kernel<S, rule>), of K4 (composite_parts_kernel) and of K6
+   (sbc_kernel<CH>);
 3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
    B over a band), the sequential scan K1S and the SBC decode K6 --
@@ -30,8 +31,9 @@ line is printed):
    (`device_ms`), and the bound of its work (for the scans the larger
    of bytes and the longest row's or slice's FSM chain; for K2, K2F, K3
    and K3F the bytes the tick's data needs -- their MB kinds, coded
-   blocks and active lanes -- with the bytes of every input and output
-   beside it as `yardstick_ms`); K1S's two
+   blocks and active lanes -- and for K3P the reference windows its MBs
+   read, with the bytes of every input and output beside it as
+   `yardstick_ms`); K1S's two
    passes alone (the second's resolution against its plain form,
    resolve_slices) and a second K1S call with corrupt slices, idle
    lanes and a budget that cuts lanes inside a later slice, which
@@ -44,6 +46,11 @@ line is printed):
    (espflix_tpu_torch/tools/composite_cases.py, every blend class,
    progress at the bar's ends, luma across the dither mask, every
    chroma value) at the chain's lanes and three fewer, NTSC and PAL;
+   K3P also on the tests' K3P edge case
+   (espflix_tpu_torch/tools/predict_cases.py: windows at and one past
+   every edge, every half-pel phase, rule B across each edge) at three
+   lanes fewer, rule A over whole planes and rule B on bands at the
+   first, a middle and the last MB row and over the whole plane;
 4. the chain: run_full_chunk over the bench workload
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
@@ -77,8 +84,9 @@ line is printed):
    run_chunk_full under the mesh (8 ticks in chunks of 4, one tap
    lane) equal to the unsharded full fleet; the 'space' split
    (make_space_sharded_dense, a 2 x 2 mesh: K2F and K3P rule B) equal
-   to the unsharded band form through the plain forms on a P picture;
-   K3P and K1S launched;
+   to the unsharded band form through the plain forms on a P picture,
+   with the share of its MBs whose rule-B taps cross an edge (K3P's
+   byte path); K3P and K1S launched;
 9. the total seconds, the card's name and power limit, one JSON line
    with the kernels' numbers (launches: serving A's for K1-K6, the
    decode-only serving's for K1F-K3F, the mesh phase's for K3P and
@@ -244,6 +252,8 @@ def checked_calls(seen: dict):
     from espflix_tpu_torch.ops import mocomp as MC
     from espflix_tpu_torch.ops import vlc_scan as VS
     swaps = [(MC, "predict_plane", MC.predict_plane_torch, "K3P_predict"),
+             (MC, "predict_chroma_pair", MC.predict_chroma_pair_torch,
+              "K3P_predict"),
              (MC, "predict_plane_rows", MC.predict_plane_rows_torch,
               "K3P_predict"),
              (VS, "run_scan", VS.run_scan_torch, "K1S_slice_scan_seq")]
@@ -253,7 +263,7 @@ def checked_calls(seen: dict):
             out = kernel(*a, **kw)
             s = seen.setdefault(name, dict(calls=0, checked=0, errored=0))
             s["calls"] += 1
-            bad = isinstance(out, tuple) and bool(out[3].any())
+            bad = name == "K1S_slice_scan_seq" and bool(out[3].any())
             if name == "K3P_predict" or not s["checked"] or bad:
                 ref = plain(*a, **kw)
                 pairs = list(zip(out, ref)) if isinstance(out, tuple) \
@@ -787,6 +797,54 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
     return errs
 
 
+def rule_b_edge_mbs(mv_h, mv_v, S: int):
+    """bool[N, mbh, mbw]: the MBs whose rule-B taps cross an edge of the
+    plane, which K3P predicts byte by byte (predict_cases.crossings)."""
+    import torch
+    from espflix_tpu_torch.tools.predict_cases import crossings
+    mbh, mbw = mv_h.shape[1:]
+    m = crossings(dict(mv_h=mv_h.cpu().numpy(), mv_v=mv_v.cpu().numpy(),
+                       mb_size=S, mb_width=mbw, mb_height=mbh))["edge"]
+    return torch.from_numpy(m)
+
+
+def predict_edge_case(dev, mbw: int, mbh: int, lanes: int) -> int:
+    """K3P against its plain forms on the tests' shared edge case
+    (tools/predict_cases.py) at the bench's picture size: luma and
+    chroma, rule A over the whole plane and rule B on each of the
+    case's bands.  Returns the max |err|."""
+    import torch
+    from espflix_tpu_torch.ops import mocomp as MC
+    from espflix_tpu_torch.tools.predict_cases import bands, predict_case
+
+    err = 0
+    for S in (16, 8):
+        c = predict_case(400 + S, S, mbw, mbh, lanes)
+        ref, mh, mv = (torch.from_numpy(c[k]).to(dev)
+                       for k in ("ref", "mv_h", "mv_v"))
+        err = max(err, require_equal(f"K3P rule A, edge case, S={S}", [(
+            MC.predict_plane(ref, mh, mv, S),
+            MC.predict_plane_torch(ref, mh, mv, S))]))
+        if S == 8:
+            # the one-launch u + v form, v from another case's plane
+            ref_v = torch.from_numpy(
+                predict_case(500, S, mbw, mbh, lanes)["ref"]).to(dev)
+            err = max(err, require_equal(
+                "K3P chroma pair, edge case",
+                zip(MC.predict_chroma_pair(ref, ref_v, mh, mv),
+                    MC.predict_chroma_pair_torch(ref, ref_v, mh, mv))))
+        for row0, rows in bands(mbh):
+            mhb, mvb = (t[:, row0:row0 + rows].contiguous() for t in (mh, mv))
+            err = max(err, require_equal(
+                f"K3P rule B, edge case, S={S}, MB rows {row0}+{rows}", [(
+                    MC.predict_plane_rows(ref, mhb, mvb, S, row0),
+                    MC.predict_plane_rows_torch(ref, mhb, mvb, S, row0))]))
+    torch.cuda.synchronize()
+    log(f"[kernel] K3P edge case ({lanes} lanes, {mbw}x{mbh} MBs, S 16 "
+        f"and 8, the chroma pair, bands {bands(mbh)}): max |err| {err}")
+    return err
+
+
 def composite_edge_case(dev, lanes: int) -> int:
     """K4 against its plain form on the tests' shared edge case
     (tools/composite_cases.py: every blend class, progress at the bar's
@@ -1007,8 +1065,9 @@ def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
                         reps: int, mbw: int, mbh: int, dev,
                         clock_hz: float) -> list:
     """K3P and K1S against their plain versions at the bench tick's
-    1,024 lanes: K3P over the y, u and v planes (three launches, as
-    the mesh's decoder makes them) with the vectors of the P-heavy tick
+    1,024 lanes: K3P over the y, u and v planes (predict_plane for y,
+    predict_chroma_pair for u and v: two launches, as the mesh's decoder
+    makes them) with the vectors of the P-heavy tick
     `x_p` and with random vectors past every edge, rule A over whole
     planes and rule B over a band of MB rows 3-8; K1S over the pictures
     of the I-heavy tick `x_i_pics`, then over the same pictures with
@@ -1037,8 +1096,8 @@ def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
     def scaled(mh, mv):
         return [(mh, mv), (mh >> 1, mv >> 1), (mh >> 1, mv >> 1)]
 
-    def run(fn, mvs):
-        return [fn(r, mh, mv, S) for r, (mh, mv), S in zip(refs, mvs, sizes)]
+    def run(plane, pair, mvs):
+        return [plane(refs[0], *mvs[0], 16), *pair(*refs[1:], *mvs[1])]
 
     def run_band(fn, mvs, row0=3, rows=6):
         return [fn(r, mh[:, row0:row0 + rows].contiguous(),
@@ -1050,26 +1109,40 @@ def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
     rnd = scaled(*(torch.randint(-48, 49, mv_h.shape, generator=g,
                                  dtype=torch.int32).to(dev)
                    for _ in range(2)))
-    preds = run(MC.predict_plane, mvs)
-    err = require_equal("K3P rule A", zip(preds,
-                                          run(MC.predict_plane_torch, mvs)))
+    kernel = (MC.predict_plane, MC.predict_chroma_pair)
+    plain = (MC.predict_plane_torch, MC.predict_chroma_pair_torch)
+    preds = run(*kernel, mvs)
+    err = require_equal("K3P rule A", zip(preds, run(*plain, mvs)))
     err = max(err, require_equal(
         "K3P rule A, vectors past the edges",
-        zip(run(MC.predict_plane, rnd), run(MC.predict_plane_torch, rnd))))
+        zip(run(*kernel, rnd), run(*plain, rnd))))
     err = max(err, require_equal(
         "K3P rule B, band of MB rows 3-8",
         zip(run_band(MC.predict_plane_rows, rnd),
             run_band(MC.predict_plane_rows_torch, rnd))))
+    err = max(err, predict_edge_case(dev, mbw, mbh, N - 3))
     out.append(dict(
         name="K3P_predict", route="cuda",
         source="espflix_tpu_torch/csrc/compose.cu",
         replaces="espflix_tpu/ops/mocomp_pallas.py:47,350,501,613,747",
         max_abs_err=err, library_ms=None,
-        **timed(lambda: run(MC.predict_plane, mvs), reps),
-        plain_ms=time_ms(lambda: run(MC.predict_plane_torch, mvs), reps)))
-    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(nbytes(
-        *refs, *[m for pair in mvs for m in pair], *preds))
-    log(f"[kernel] {out[-1]} (y, u and v: three launches)")
+        **timed(lambda: run(*kernel, mvs), reps),
+        plain_ms=time_ms(lambda: run(*plain, mvs), reps)))
+    # bound: the reference bytes every MB's window reads (rule A, each
+    # byte once), the predictions and the vectors the call reads (u and
+    # v share one chroma pair)
+    every = torch.ones_like(mv_h, dtype=torch.bool)
+    W, H = 16 * mbw, 16 * mbh
+    vectors = [*mvs[0], *mvs[1]]
+    out[-1]["bound_ms"], out[-1]["bound_by"] = bound(
+        ref_window_bytes(mv_h, mv_v, every, 16, W, H)
+        + 2 * ref_window_bytes(mv_h >> 1, mv_v >> 1, every, 8, W // 2,
+                               H // 2) + nbytes(*vectors, *preds))
+    out[-1]["yardstick_ms"] = bound(nbytes(*refs, *vectors, *preds))[0]
+    band_edge = [float(rule_b_edge_mbs(mh, mv, S)[:, 3:9].float().mean())
+                 for (mh, mv), S in zip(rnd, sizes)]
+    log(f"[kernel] {out[-1]} (y, then u and v in one launch; the rule-B "
+        f"band's MBs on the byte path, y / u / v: {band_edge})")
 
     b = M.make_picture_batch(x_i_pics, words_per_lane=wpl, max_slices=mbh)
     xs = list(M.xs_to_torch({k: b[k] for k in M.PICTURE_KEYS[:7]},
@@ -1226,6 +1299,7 @@ def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
     import numpy as np
     import torch
     from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import mocomp as MC
     from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.parallel import mesh as PM
     from espflix_tpu_torch.tools import mpeg1_encode as E
@@ -1390,12 +1464,17 @@ def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
         (PM.unshard(smesh, fr_b[key], fspec[key]), fr_a[key])
         for key in ("y", "u", "v", "parity")])
     rule_diff = sum(int((pres_c[key] != pres_a[key]).sum()) for key in "yuv")
+    _kind, mv_h, mv_v = MC.mb_fields(recs, mbw, mbh)
+    edge_share = [float(rule_b_edge_mbs(mh, mv, S).float().mean())
+                  for mh, mv, S in ((mv_h, mv_v, 16),
+                                    (mv_h >> 1, mv_v >> 1, 8))]
     log(f"[mesh space] 2 x 2 (streams, space) mesh, {lanes} lanes of a P "
         f"picture: sharded (K2F, K3P rule B) == the unsharded band form "
         f"through the plain forms in presented planes and frames; "
         f"{space_ms:.1f} ms for the call; launches "
         f"{space_counts}; rule A (the fleet's dense_compose_flat) differs "
-        f"from rule B in {rule_diff} presented pixels of this picture")
+        f"from rule B in {rule_diff} presented pixels of this picture; "
+        f"K3P's byte path takes {edge_share} of its MBs (luma, chroma)")
     return counts
 
 

@@ -40,15 +40,16 @@ SIGNATURES = {
     "esp_idct_flat": "p" * 7 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
     "esp_compose_put_flat": "p" * 10 + "i" * 3,
-    "esp_predict": "p" * 4 + "i" * 8,
+    "esp_predict": "p" * 6 + "i" * 9,
     "esp_composite_parts": "p" * 12 + "i" * 7,
     "esp_pdm": "p" * 4 + "i" * 2,
-    "esp_sbc_decode": "p" * 11 + "i" * 4,
+    "esp_sbc_decode": "p" * 12 + "i" * 4,
 }
 # entry points that report cudaFuncGetAttributes figures of their
 # source's kernels (csrc/resources.cuh)
 RESOURCES = ("esp_scan_resources", "esp_compose_resources",
-             "esp_idct_resources", "esp_composite_resources")
+             "esp_idct_resources", "esp_composite_resources",
+             "esp_sbc_resources")
 MAX_RESOURCE_KERNELS = 8                # kernels an entry may report
 
 _lib = None

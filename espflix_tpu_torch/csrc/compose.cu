@@ -55,17 +55,14 @@
 // thread reads what another writes.  The presented planes go to
 // separate tensors.
 //
-// K3P (esp_predict) -- prediction alone, for a band of MB rows.
+// K3P (esp_predict, which also predicts both chroma planes in one
+// launch, as _packed_kernel predicts the pair) -- prediction alone, for
+// a band of MB rows.
 // Replaces mocomp_pallas.py _kernel (predict_plane_pallas), the
 // _phase_kernel, _phase2_kernel and _phase4_kernel luma forms and
 // _packed_kernel: every one of them computes predict_plane and nothing
 // else; the mesh's decoders compose afterwards in torch ops, as the JAX
-// package composes in XLA.  One block per (MB row of the band, lane),
-// each thread four adjacent output bytes stored as one 32-bit word (a
-// 4-pixel group never straddles an MB: S is 8 or 16), the taps read
-// through the read-only cache.  What bounds it: memory -- each output
-// byte is written once and its taps are mostly L1 hits of the window
-// the row's MBs share.  The JAX package has two edge rules, and K3P
+// package composes in XLA.  The JAX package has two edge rules, and K3P
 // takes the rule as a template parameter:
 //   rule A (CLIP_TAPS = false): the window origin is clamped, clip(xh >>
 //     1, 0, W - S), and taps past the plane read zero -- the five Pallas
@@ -76,7 +73,30 @@
 //     (mocomp.py:54-57, :208-211), which the 'space' split uses.
 // The band holds MB rows [row0, row0 + mbh_loc) of a full-height
 // reference plane (H rows); the output is the band, [N, mbh_loc*S, W].
+//
+// What bounds it: memory -- each output byte is written once and the
+// windows' taps are mostly cache hits of the reference rows the MBs
+// share.  A kernel that makes one 4-byte word a thread instead pays for
+// instruction issue: four runtime divisions to place the word, the MB's
+// vectors reloaded, sixteen byte loads with their own clamps.  The
+// design: a thread owns one S-pixel row of one MB, blockDim (S, mbw, R)
+// as K3 has it, with R MB rows a block (PREDICT_THREADS), placed by
+// threadIdx and blockIdx alone.  A warp holds two luma MBs or four
+// chroma ones, so the few MBs that take rule B's byte path at a plane's
+// edge hold up only their own warps (a warp walking along a row spans
+// the row's edge MBs, and rule B measured 22% slower that way).  The
+// thread reads the MB's two vectors once, predicts its row as S/4 words
+// through predict_row<S>, the word-row path K3 runs (aligned 32-bit
+// loads, funnel shifts, __vavgu4, avg4), and stores it as one uint4 (S
+// = 16) or uint2 (S = 8).  Rule B takes predict_row<S> too wherever the
+// MB's taps lie inside the plane, where both rules read the same bytes;
+// only an MB whose taps cross an edge clamps each tap, byte by byte
+// (predict_row_clamped).  On the mesh's own ticks no MB takes that path
+// (chip_smoke.py's 'space' split of a P picture of the encoder's
+// content, where the two rules agree in every pixel); on chip_smoke.py's
+// band of random vectors up to 24 pixels long, 6% do.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -294,63 +314,84 @@ __global__ void __launch_bounds__(1024)
                  Wc, Hc, kind, mvx >> 1, mvy >> 1, c, r, yc, rc);
 }
 
-template <bool CLIP_TAPS>
-__global__ void predict_kernel(const uint8_t* __restrict__ ref,
-                               const int* __restrict__ mvh,
-                               const int* __restrict__ mvv,
-                               uint8_t* __restrict__ out, int H, int W,
-                               int S, int mbw, int mbh_loc, int row0) {
-  const int r = blockIdx.x, n = blockIdx.y;
-  const uint8_t* rp = ref + (size_t)n * H * W;
-  uint8_t* op = out + ((size_t)n * mbh_loc + r) * S * W;
-  const int* mh = mvh + ((size_t)n * mbh_loc + r) * mbw;
-  const int* mv = mvv + ((size_t)n * mbh_loc + r) * mbw;
-  const int quads = S * W / 4;
-  for (int q = threadIdx.x; q < quads; q += blockDim.x) {
-    const int yi = (q * 4) / W, x = (q * 4) % W;
-    const int c = x / S, xi = x % S;
-    const int xh = c * S * 2 + __ldg(mh + c);
-    const int yh = (row0 + r) * S * 2 + __ldg(mv + c);
-    const bool hx = xh & 1, hy = yh & 1;
-    int ya, yb;                       // rows of the a/b and c/d taps
-    bool yb_in;
-    int xa0;                          // column of the first a tap
-    if (CLIP_TAPS) {
-      ya = clampi((yh >> 1) + yi, 0, H - 1);
-      yb = clampi((yh >> 1) + yi + 1, 0, H - 1);
-      yb_in = true;
-      xa0 = (xh >> 1) + xi;
-    } else {
-      ya = clampi(yh >> 1, 0, H - S) + yi;        // < H
-      yb = ya + 1;
-      yb_in = yb < H;
-      xa0 = clampi(xh >> 1, 0, W - S) + xi;       // a taps stay < W
-    }
-    const uint8_t* ra = rp + (size_t)ya * W;
-    const uint8_t* rb = rp + (size_t)(yb_in ? yb : ya) * W;
+// one S-pixel row of an MB's half-pel prediction with each tap clamped
+// into the plane (rule B at an edge): window origin x0, row y
+template <int S>
+__device__ __forceinline__ void predict_row_clamped(
+    const uint8_t* ref, int W, int H, int x0, int y, bool hx, bool hy,
+    uint32_t (&pred)[S / 4]) {
+  const uint8_t* ra = ref + (size_t)clampi(y, 0, H - 1) * W;
+  const uint8_t* rb = ref + (size_t)clampi(y + 1, 0, H - 1) * W;
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k) {
     uint32_t word = 0;
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      int xa = xa0 + k, xb = xa0 + k + 1;
-      bool xb_in = true;
-      if (CLIP_TAPS) {
-        xa = clampi(xa, 0, W - 1);
-        xb = clampi(xb, 0, W - 1);
-      } else {
-        xb_in = xb < W;
-        if (!xb_in) xb = xa;
-      }
-      const int a = __ldg(ra + xa);
-      const int b = xb_in ? __ldg(ra + xb) : 0;
-      const int cc = yb_in ? __ldg(rb + xa) : 0;
-      const int d = (yb_in && xb_in) ? __ldg(rb + xb) : 0;
-      const int pred = !hx ? (!hy ? a : (a + cc + 1) >> 1)
-                           : (!hy ? (a + b + 1) >> 1
-                                  : (a + b + cc + d + 2) >> 2);
-      word |= (uint32_t)pred << (8 * k);
+    for (int j = 0; j < 4; ++j) {
+      const int xa = clampi(x0 + 4 * k + j, 0, W - 1);
+      const int xb = clampi(x0 + 4 * k + j + 1, 0, W - 1);
+      const int a = __ldg(ra + xa), b = __ldg(ra + xb);
+      const int c = __ldg(rb + xa), d = __ldg(rb + xb);
+      const int p = hx ? (hy ? (a + b + c + d + 2) >> 2 : (a + b + 1) >> 1)
+                       : (hy ? (a + c + 1) >> 1 : a);
+      word |= (uint32_t)p << (8 * j);
     }
-    *reinterpret_cast<uint32_t*>(op + (size_t)yi * W + x) = word;
+    pred[k] = word;
   }
+}
+
+// threads a K3P block aims at: R = PREDICT_THREADS / (mbw * S) MB rows
+constexpr int PREDICT_THREADS = 512;
+
+// Grid (ceil(mbh_loc / R), N, planes), blockDim (S, mbw, R): thread
+// (yi, c, z) owns row yi of MB (blockIdx.x * R + z, c) of the band of
+// plane blockIdx.z -- ref / out, or ref2 / out2 (predict_chroma_pair's
+// u and v in one launch, with the same vectors).
+template <int S, bool CLIP_TAPS>
+__global__ void __launch_bounds__(1024)
+    predict_kernel(const uint8_t* __restrict__ ref,
+                   const uint8_t* __restrict__ ref2,
+                   const int* __restrict__ mvh, const int* __restrict__ mvv,
+                   uint8_t* __restrict__ out, uint8_t* __restrict__ out2,
+                   int H, int W, int mbw, int mbh_loc, int row0) {
+  if (blockIdx.z) {
+    ref = ref2;
+    out = out2;
+  }
+  const int yi = threadIdx.x, c = threadIdx.y;
+  const int r = blockIdx.x * blockDim.z + threadIdx.z, n = blockIdx.y;
+  if (r >= mbh_loc) return;
+  const size_t mb = ((size_t)n * mbh_loc + r) * mbw + c;
+  const int xh = c * 2 * S + __ldg(mvh + mb);
+  const int yh = (row0 + r) * 2 * S + __ldg(mvv + mb);
+  const bool hx = xh & 1, hy = yh & 1;
+  const uint8_t* rp = ref + (size_t)n * H * W;
+  int x0 = xh >> 1, y0 = yh >> 1;
+  if (!CLIP_TAPS) {
+    x0 = clampi(x0, 0, W - S);
+    y0 = clampi(y0, 0, H - S);
+  }
+  uint32_t pred[S / 4];
+  if (!CLIP_TAPS || (x0 >= 0 && x0 + S - 1 + hx < W && y0 >= 0 &&
+                     y0 + S - 1 + hy < H))
+    predict_row<S>(rp, W, H, x0, y0 + yi, hx, hy, pred);
+  else
+    predict_row_clamped<S>(rp, W, H, x0, y0 + yi, hx, hy, pred);
+  store_row<S>(out + (((size_t)n * mbh_loc + r) * S + yi) * W + c * S, pred);
+}
+
+template <int S, bool CLIP_TAPS>
+void launch_predict(const void* ref, const void* ref2, const void* mvh,
+                    const void* mvv, void* out, void* out2, int planes,
+                    int N, int H, int W, int mbw, int mbh_loc, int row0,
+                    cudaStream_t stream) {
+  const int rows = std::max(1, std::min(PREDICT_THREADS / (mbw * S),
+                                        mbh_loc));
+  const dim3 grid((mbh_loc + rows - 1) / rows, N, planes);
+  const dim3 block(S, mbw, rows);
+  predict_kernel<S, CLIP_TAPS><<<grid, block, 0, stream>>>(
+      (const uint8_t*)ref, (const uint8_t*)ref2, (const int*)mvh,
+      (const int*)mvv, (uint8_t*)out, (uint8_t*)out2, H, W, mbw, mbh_loc,
+      row0);
 }
 
 // K3's stage takes 864 B an MB column, over the 48 KB default from
@@ -411,32 +452,44 @@ extern "C" int esp_compose_put_flat(const void* res, const void* recs,
                                   pu, pv, N, mbw, mbh, stream);
 }
 
-// ref uint8[N, H, W]; mvh / mvv int32[N, mbh_loc, mbw] (half-pel, at the
-// plane's scale); out uint8[N, mbh_loc * S, W].  W % 4 == 0.
-extern "C" int esp_predict(const void* ref, const void* mvh, const void* mvv,
-                           void* out, int N, int H, int W, int S, int mbw,
-                           int mbh_loc, int row0, int clip_taps,
-                           void* stream) {
-  dim3 grid(mbh_loc, N);
-  const int threads = 256;
-  if (clip_taps)
-    predict_kernel<true><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)ref, (const int*)mvh, (const int*)mvv, (uint8_t*)out,
-        H, W, S, mbw, mbh_loc, row0);
-  else
-    predict_kernel<false><<<grid, threads, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)ref, (const int*)mvh, (const int*)mvv, (uint8_t*)out,
-        H, W, S, mbw, mbh_loc, row0);
+// ref / ref2 uint8[N, H, W] (4-byte aligned); mvh / mvv int32[N,
+// mbh_loc, mbw] (half-pel, at the plane's scale); out / out2 uint8[N,
+// mbh_loc * S, W] (S-byte aligned); S is 16 or 8 and W = mbw * S.
+// planes = 2 predicts ref2 into out2 from the same vectors in the same
+// launch (both chroma planes, as _packed_kernel predicts the pair);
+// planes = 1 reads neither ref2 nor out2.
+extern "C" int esp_predict(const void* ref, const void* ref2,
+                           const void* mvh, const void* mvv, void* out,
+                           void* out2, int planes, int N, int H, int W,
+                           int S, int mbw, int mbh_loc, int row0,
+                           int clip_taps, void* stream) {
+  if ((S != 8 && S != 16) || W != mbw * S || mbw * S > 1024 ||
+      (planes != 1 && planes != 2) || row0 < 0 ||
+      (row0 + mbh_loc) * S > H)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 0 || mbh_loc <= 0) return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  const auto f = S == 16 ? (clip_taps ? launch_predict<16, true>
+                                      : launch_predict<16, false>)
+                         : (clip_taps ? launch_predict<8, true>
+                                      : launch_predict<8, false>);
+  f(ref, ref2, mvh, mvv, out, out2, planes, N, H, W, mbw, mbh_loc, row0, s);
   return (int)cudaGetLastError();
 }
 
-// K3's and K3F's registers, local and static shared bytes and largest
-// block on the current device (resources.cuh).
+// K3's, K3F's and K3P's registers, local and static shared bytes and
+// largest block on the current device (resources.cuh).
 extern "C" int esp_compose_resources(int* out, const char** names,
                                      int cap) {
   const void* fns[] = {(const void*)compose_put_kernel<false>,
-                       (const void*)compose_put_kernel<true>};
-  const char* kernel_names[] = {"compose_put_kernel<false>",
-                                "compose_put_kernel<true>"};
-  return kernel_resources(fns, kernel_names, 2, out, names, cap);
+                       (const void*)compose_put_kernel<true>,
+                       (const void*)predict_kernel<16, false>,
+                       (const void*)predict_kernel<8, false>,
+                       (const void*)predict_kernel<16, true>,
+                       (const void*)predict_kernel<8, true>};
+  const char* kernel_names[] = {
+      "compose_put_kernel<false>", "compose_put_kernel<true>",
+      "predict_kernel<16, false>", "predict_kernel<8, false>",
+      "predict_kernel<16, true>", "predict_kernel<8, true>"};
+  return kernel_resources(fns, kernel_names, 6, out, names, cap);
 }

@@ -33,23 +33,42 @@
 // What bounds it on an H100: neither bytes nor operations.  A lane's
 // call moves ~7 KB (words, hist in and out, pcm, flags) and does ~4k
 // integer operations a (frame, channel), so 1,024 lanes x 13 frames sit
-// a few microseconds from either bound (chip_smoke.py computes both).
-// The plain form costs ~1,000 small launches; here one launch does all
-// of it.  Design: one block of 128 threads per lane, the lane's V blocks
-// [F][16][CH][16] int32 in shared memory (13 KB mono at F = 13; dynamic,
-// sized from F, opted in above 48 KB), phases separated by
-// __syncthreads: (1) header and allocation, a thread per (frame,
-// channel); (2) per frame the in-block offsets, frame_bits, error and
-// validity; (3) warp 0 ranks the valid frames with a ballot per 32
-// frames, and every thread unpacks one (frame, block, channel) row --
-// eight fields and IQUANT in registers -- and writes its 16 V values;
-// (4) the synthesis, a thread per output sample in the output's own
-// order (coalesced int16 stores), and the history.  SYN_8, PROTO_8 and
-// OFFSET_8 come in as device pointers and are staged in shared memory.
+// a few microseconds from either bound (chip_smoke.py computes both);
+// one launch of one block a lane runs in a single wave, so the kernel
+// takes about one block's critical path.  The plain form costs ~1,000
+// small launches.  Design: one block of 128 threads per lane, four
+// phases split by __syncthreads, every one spread over many threads:
+//   (1) warp 0, a lane a frame: the header, the allocation, the
+//   in-block offsets, frame_bits and the error flag; the valid frames
+//   ranked by one ballot per 32 frames, and each valid frame's fields
+//   (width, scale factor, offset in the block) written to its rank's
+//   slot.  The allocation's do-while is a binary search: after trip t it
+//   has handed out C(t) = sum over subbands of min(need - bitslice, 15)
+//   + 1 bits (0 while need <= bitslice), which grows with t, and it
+//   stops at the first t with C(t) >= bitpool, so six steps find that
+//   trip in place of up to 48.  Warps 1-3 meanwhile stage IQUANT's
+//   reciprocals and the history, flipped, ahead of the V timeline.
+//   (2) a thread per field column (valid frame, channel, subband): its
+//   width, scale factor and reciprocal once, then the 16 blocks' fields,
+//   extract_bits and IQUANT, whose divisions by 2^level - 1 are
+//   multiplications by the Granlund-Montgomery reciprocals of
+//   ops/sbc_ops.iquant_reciprocals (__umulhi and a shift, exact for the
+//   numerators' 30 bits).
+//   (3) a thread per (row, V lane j), SYN_8's row j in registers: V =
+//   (SYN_8 . samples) >> 15 written straight to the row's compacted
+//   slot of the timeline [history | valid blocks].
+//   (4) a thread per output sample in the output's own order (coalesced
+//   int16 stores), PROTO_8's row in registers: the 10 taps at fixed
+//   offsets below the sample's block in the timeline; then the history.
+// Shared memory holds the timeline [10 + F*16][CH][16], the samples
+// [F*16][CH][8] and the per-frame fields (21 KB mono at F = 13;
+// dynamic, sized from F, opted in above 48 KB; models/sbc.shared_bytes
+// counts the same ints).
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "resources.cuh"
 
 namespace {
 
@@ -58,8 +77,11 @@ constexpr int BLOCKS = 16;     // SBC blocks a frame
 constexpr int SB = 8;          // subbands
 constexpr int HIST = 10;       // V-history depth (past blocks)
 constexpr int MAX_TRIPS = 48;  // bit_allocation_batched's max_iters
+constexpr int SEARCH_STEPS = 6;  // 2^6 >= MAX_TRIPS
+constexpr int LEVELS = 17;     // IQUANT levels 0..16
 constexpr size_t SMEM_DEFAULT = 48 * 1024;
-static_assert(BLOCKS == 16, "t >> 4 / t & 15 split the block timeline");
+static_assert(BLOCKS == 16, "q >> 4 / & 15 split the block timeline");
+static_assert((1 << SEARCH_STEPS) >= MAX_TRIPS, "binary search too short");
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return (int)((uint32_t)a + (uint32_t)b);
@@ -69,33 +91,51 @@ __device__ __forceinline__ int wmul(int a, int b) {
   return (int)((uint32_t)a * (uint32_t)b);
 }
 
-// sbc_ops.bit_allocation_batched for one (frame, channel).
-__device__ void allocate(const int (&sf)[SB], int bitpool, const int* off,
-                         int allocation, int (&bits)[SB]) {
-  int need[SB];
-  int maxneed = INT_MIN;
+// the bits the allocation has handed out once the bit slice is at `top`:
+// a subband whose need is k above it holds k + 1 bits up to 16 (2 at k
+// = 1, one more each slice after), none while k <= 0
+__device__ __forceinline__ int handed(const int (&need)[SB], int top) {
+  int c = 0;
 #pragma unroll
   for (int s = 0; s < SB; ++s) {
-    int loud = sf[s] - off[s];
+    const int k = need[s] - top;
+    c += k > 0 ? min(k, 15) + 1 : 0;
+  }
+  return c;
+}
+
+// sbc_ops.bit_allocation_batched for one (frame, channel).
+__device__ __forceinline__ void allocate(const int (&sf)[SB], int bitpool,
+                                         const int* __restrict__ off,
+                                         int allocation, int (&bits)[SB]) {
+  int need[SB];
+  int maxneed = -(1 << 30);
+#pragma unroll
+  for (int s = 0; s < SB; ++s) {
+    int loud = sf[s] - __ldg(off + s);
     loud = loud > 0 ? loud >> 1 : loud;
     need[s] = allocation == 1 ? sf[s] : (sf[s] == 0 ? -5 : loud);
     maxneed = max(maxneed, need[s]);
   }
-  int bitslice = maxneed + 1, bitcount = 0, slicecount = 0;
-  // the plain form's 48 masked trips: once done, a trip changes nothing
-  for (int it = 0; it < MAX_TRIPS; ++it) {
-    bitslice -= 1;
-    bitcount += slicecount;
-    slicecount = 0;
+  // trip t of the plain form's do-while leaves bitslice = maxneed - t
+  // and stops at the first t with handed(maxneed - t) >= bitpool, or
+  // after trip MAX_TRIPS - 1: the search keeps that t in [lo, hi]
+  int lo = 0, hi = MAX_TRIPS - 1;
 #pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      slicecount += (need[s] > bitslice + 1 && need[s] < bitslice + 16);
-      slicecount += need[s] == bitslice + 1 ? 2 : 0;
+  for (int step = 0; step < SEARCH_STEPS; ++step) {
+    const int mid = (lo + hi) >> 1;
+    const bool enough = handed(need, maxneed - mid) >= bitpool;
+    if (lo < hi) {
+      hi = enough ? mid : hi;
+      lo = enough ? lo : mid + 1;
     }
-    if (bitcount + slicecount >= bitpool) break;
   }
-  if (bitcount + slicecount == bitpool) {
-    bitcount += slicecount;
+  int bitslice = maxneed - lo;
+  // bitcount before the last trip's slice, and with it
+  int bitcount = handed(need, bitslice + 1);
+  const int total = handed(need, bitslice);
+  if (total == bitpool) {
+    bitcount = total;
     bitslice -= 1;
   }
 #pragma unroll
@@ -121,32 +161,42 @@ __device__ void allocate(const int (&sf)[SB], int bitpool, const int* off,
   }
 }
 
-// sbc_ops.extract_bits for one field of `width` > 0 bits at bit `off`:
-// the first word past the buffer reads 0, the second word's index clamps
-// to W - 1, and off % 32 == 0 takes nothing from the second word.
+// sbc_ops.extract_bits for one field of `width` bits (1..16) at bit
+// `off`: the first word past the buffer reads 0, the second word's index
+// clamps to W - 1, and off % 32 == 0 takes nothing from the second word.
 __device__ __forceinline__ int extract(const int* __restrict__ wf, int W,
                                        int off, int width) {
   const int wi = off >> 5;
-  const int o = off & 31;
   const uint32_t w0 = wi < W ? (uint32_t)__ldg(wf + wi) : 0u;
   const uint32_t w1 = (uint32_t)__ldg(wf + min(wi + 1, W - 1));
-  const uint32_t win = (w0 << o) | (o == 0 ? 0u : w1 >> (32 - o));
-  return (int)(win >> min(max(32 - width, 0), 31));
+  const uint32_t win = __funnelshift_l(w1, w0, off & 31);
+  return (int)(win >> (32 - width));
 }
 
 // sbc_ops.iquant_exact: ((raw<<1|1) << scale) // (2^level - 1) -
 // (1<<scale) in two steps.  Every operand is non-negative (raw < 2^16,
 // level <= 16, scale <= 15, so a < 2^30 and every quotient < 2^18), so
-// C's truncating division here is the plain form's floor division.
-__device__ __forceinline__ int iquant(int raw, int level, int scale) {
+// the floor division is C's.  a / d is __umulhi(a << 2, m) >> sh with
+// level's reciprocal (m, sh), exact for a < 2^30 (sbc_ops.
+// iquant_reciprocals); the second step's numerator is below 2^18.
+__device__ __forceinline__ int iquant(int raw, int level, int scale,
+                                      uint2 recip) {
   const uint32_t s = ((uint32_t)raw << 1) | 1u;
   const uint32_t d = (uint32_t)max((1 << level) - 1, 1);  // clamp(min=1)
   const int s1 = min(scale, 13), s2 = scale - s1;
   const uint32_t a = s << s1;
-  const uint32_t q1 = a / d;
-  const uint32_t r1 = a - q1 * d;
-  const uint32_t q = (q1 << s2) + (r1 << s2) / d;
+  const uint32_t q1 = __umulhi(a << 2, recip.x) >> recip.y;
+  const uint32_t r1 = (a - q1 * d) << s2;
+  const uint32_t q = (q1 << s2) + (__umulhi(r1 << 2, recip.x) >> recip.y);
   return (int)q - (1 << scale);
+}
+
+// the dynamic shared memory of one block, in ints (models/sbc.
+// shared_bytes counts the same)
+template <int CH>
+__host__ __device__ constexpr size_t shared_ints(int F) {
+  return (size_t)(HIST + F * BLOCKS) * CH * 16 + (size_t)F * BLOCKS * CH * SB +
+         2 * LEVELS + (size_t)F * CH * SB + 3 * (size_t)F + 2;
 }
 
 template <int CH>
@@ -154,179 +204,176 @@ __global__ void __launch_bounds__(THREADS)
 sbc_kernel(const int* __restrict__ words, const int* __restrict__ hist,
            const bool* __restrict__ active, const int* __restrict__ n_valid,
            const int* __restrict__ syn, const int* __restrict__ proto,
-           const int* __restrict__ off8, int16_t* __restrict__ pcm,
-           int* __restrict__ hist_out, bool* __restrict__ error,
-           int* __restrict__ frame_bits, int F, int W) {
-  // layout: models/sbc.shared_bytes counts the same ints
-  extern __shared__ int smem[];
-  int* sV = smem;                            // [F][16][CH][16]
-  int* sBits = sV + F * BLOCKS * CH * 16;    // [F][CH][8]
-  int* sSf = sBits + F * CH * SB;            // [F][CH][8]
-  int* sPre = sSf + F * CH * SB;             // [F][CH][8] offset in a block
-  int* sBlockBits = sPre + F * CH * SB;      // [F]
-  int* sValid = sBlockBits + F;              // [F]
-  int* sRank = sValid + F;                   // [F] compacted index or -1
-  int* sComp = sRank + F;                    // [F] compacted index -> frame
-  int* sH0 = sComp + F;                      // [CH][10][16]
-  int* sSyn = sH0 + CH * HIST * 16;          // [16][8]
-  int* sProto = sSyn + 16 * SB;              // [8][10]
-  int* sOff = sProto + SB * HIST;            // [4][8]
-  int* sMisc = sOff + 4 * SB;                // valid count, last valid frame
+           const int* __restrict__ off8, const int* __restrict__ recip,
+           int16_t* __restrict__ pcm, int* __restrict__ hist_out,
+           bool* __restrict__ error, int* __restrict__ frame_bits, int F,
+           int W) {
+  extern __shared__ int4 smem4[];
+  int* sV = reinterpret_cast<int*>(smem4);   // [HIST + F*16][CH][16]
+  int* sSmp = sV + (HIST + F * BLOCKS) * CH * 16;  // [F*16][CH][8]
+  uint2* sRecip = reinterpret_cast<uint2*>(sSmp + F * BLOCKS * CH * SB);
+  int* sField = reinterpret_cast<int*>(sRecip + LEVELS);  // [F][CH][8]
+  int* sBlockBits = sField + F * CH * SB;    // [F] by rank
+  int* sComp = sBlockBits + F;               // [F] rank -> frame
+  int* sRank = sComp + F;                    // [F] frame -> rank or -1
+  int* sCount = sRank + F;                   // valid frames
 
   const int n = blockIdx.x;
   const int tid = threadIdx.x;
-  const bool act = active[n];
-  const int nval = n_valid[n];
   const int* wl = words + (size_t)n * F * W;
   const int* hl = hist + (size_t)n * 2 * HIST * 16;
-  const int base = (4 + CH * 4) * 8;         // header + scale-factor bits
+  constexpr int BASE = (4 + CH * 4) * 8;     // header + scale-factor bits
 
-  for (int i = tid; i < 16 * SB; i += THREADS) sSyn[i] = syn[i];
-  for (int i = tid; i < SB * HIST; i += THREADS) sProto[i] = proto[i];
-  for (int i = tid; i < 4 * SB; i += THREADS) sOff[i] = off8[i];
-  for (int i = tid; i < CH * HIST * 16; i += THREADS) sH0[i] = hl[i];
-  __syncthreads();
-
-  // 1. scale factors and allocation, a thread per (frame, channel); the
-  // channel's 8 nibbles are word 1 + ch, MSB first (W >= CH + 1)
-  for (int i = tid; i < F * CH; i += THREADS) {
-    const int f = i / CH, ch = i % CH;
-    const uint32_t w0 = (uint32_t)wl[f * W];
-    const uint32_t wsf = (uint32_t)wl[f * W + 1 + ch];
-    const int b1 = (w0 >> 16) & 0xFF;
-    const int bitpool = (w0 >> 8) & 0xFF;
-    int sf[SB], bits[SB];
-#pragma unroll
-    for (int s = 0; s < SB; ++s) sf[s] = (wsf >> (28 - 4 * s)) & 0xF;
-    allocate(sf, bitpool, sOff + ((b1 >> 6) & 3) * SB, (b1 >> 1) & 1, bits);
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      sBits[i * SB + s] = bits[s];
-      sSf[i * SB + s] = sf[s];
-    }
-  }
-  __syncthreads();
-
-  // 2. per frame: field offsets within a block, frame_bits, error flag
-  // and validity
-  for (int f = tid; f < F; f += THREADS) {
-    int acc = 0;
-    for (int k = 0; k < CH * SB; ++k) {
-      sPre[f * CH * SB + k] = acc;
-      acc += sBits[f * CH * SB + k];
-    }
-    sBlockBits[f] = acc;
-    frame_bits[(size_t)n * F + f] = base + BLOCKS * acc;
-    const uint32_t w0 = (uint32_t)wl[f * W];
-    const int b0 = w0 >> 24, b1 = (w0 >> 16) & 0xFF;
-    const int mode = (b1 >> 2) & 3;
-    const bool bad = b0 != 0x9C || ((b1 >> 4) & 3) != 3 || (b1 & 1) != 1 ||
-                     mode == 3 || (mode == 0 ? 1 : 2) != CH;
-    const bool in_n = f < nval;
-    error[(size_t)n * F + f] = bad && in_n && act;
-    sValid[f] = !bad && in_n && act;
-  }
-  __syncthreads();
-
-  // 3a. warp 0: stable valid-first compaction, 32 frames a ballot
   if (tid < 32) {
+    // 1. a lane a frame: header, allocation, offsets, frame_bits, error;
+    // the valid frames ranked in order, their fields at their rank
+    const bool act = active[n];
+    const int nval = n_valid[n];
     int count = 0;
     for (int f0 = 0; f0 < F; f0 += 32) {
       const int f = f0 + tid;
-      const bool v = f < F && sValid[f];
-      const unsigned m = __ballot_sync(0xffffffffu, v);
+      const bool in = f < F;
+      const uint32_t w0 = in ? (uint32_t)__ldg(wl + (size_t)f * W) : 0u;
+      const int b0 = w0 >> 24, b1 = (w0 >> 16) & 0xFF;
+      const int bitpool = (w0 >> 8) & 0xFF;
+      const int mode = (b1 >> 2) & 3;
+      const bool bad = b0 != 0x9C || ((b1 >> 4) & 3) != 3 ||
+                       (b1 & 1) != 1 || mode == 3 ||
+                       (mode == 0 ? 1 : 2) != CH;
+      const bool in_n = f < nval;
+      const bool valid = in && !bad && in_n && act;
+      const unsigned m = __ballot_sync(0xffffffffu, valid);
       const int k = count + __popc(m & ((1u << tid) - 1u));
-      if (f < F) sRank[f] = v ? k : -1;
-      if (v) sComp[k] = f;
       count += __popc(m);
+      if (!in) continue;
+      sRank[f] = valid ? k : -1;
+      error[(size_t)n * F + f] = bad && in_n && act;
+      int acc = 0;
+#pragma unroll 1
+      for (int ch = 0; ch < CH; ++ch) {
+        // the channel's 8 nibbles are word 1 + ch, MSB first
+        const uint32_t wsf = (uint32_t)__ldg(wl + (size_t)f * W + 1 + ch);
+        int sf[SB], bits[SB];
+#pragma unroll
+        for (int s = 0; s < SB; ++s) sf[s] = (wsf >> (28 - 4 * s)) & 0xF;
+        allocate(sf, bitpool, off8 + ((b1 >> 6) & 3) * SB, (b1 >> 1) & 1,
+                 bits);
+#pragma unroll
+        for (int s = 0; s < SB; ++s) {
+          if (valid)
+            sField[(k * CH + ch) * SB + s] = bits[s] | sf[s] << 5 | acc << 9;
+          acc += bits[s];
+        }
+      }
+      if (valid) {
+        sBlockBits[k] = acc;
+        sComp[k] = f;
+      }
+      frame_bits[(size_t)n * F + f] = BASE + BLOCKS * acc;
     }
-    __syncwarp();
-    if (tid == 0) {
-      sMisc[0] = count;
-      sMisc[1] = count ? sComp[count - 1] : 0;
+    if (tid == 0) *sCount = count;
+  } else {
+    // IQUANT's reciprocals, and the history flipped ahead of the
+    // timeline: slot HIST - 1 - j holds h0 row j
+    for (int i = tid - 32; i < LEVELS; i += THREADS - 32)
+      sRecip[i] =
+          make_uint2((uint32_t)recip[2 * i], (uint32_t)recip[2 * i + 1]);
+    for (int i = tid - 32; i < CH * HIST * 16; i += THREADS - 32) {
+      const int ch = i / (HIST * 16), j = (i >> 4) % HIST, col = i & 15;
+      sV[((HIST - 1 - j) * CH + ch) * 16 + col] = hl[i];
     }
   }
-  // 3b. unpack + IQUANT + V, a thread per valid (frame, block, channel)
-  // row r = (f * 16 + blk) * CH + ch
-  for (int r = tid; r < F * BLOCKS * CH; r += THREADS) {
-    const int f = r / (BLOCKS * CH);
-    if (!sValid[f]) continue;
-    const int blk = (r / CH) % BLOCKS, ch = r % CH;
-    const int fc = (f * CH + ch) * SB;
-    const int* wf = wl + f * W;
-    const int off0 = base + blk * sBlockBits[f];
-    int smp[SB];
+  __syncthreads();
+
+  // 2. a thread per field column (rank k, channel ch, subband s): its
+  // width, scale factor and reciprocal read once, then the field of
+  // each of the 16 blocks, a block's bits apart -- extract_bits and
+  // IQUANT -- into samples row q = (k * 16 + blk) * CH + ch
+  const int nv = *sCount;
+  const int rows = nv * BLOCKS * CH;
+  for (int c = tid; c < nv * CH * SB; c += THREADS) {
+    const int k = c / (CH * SB), ch = (c / SB) % CH, s = c % SB;
+    const int fld = sField[c];
+    const int width = fld & 31, scale = (fld >> 5) & 15;
+    const int* wf = wl + (size_t)sComp[k] * W;
+    const int bb = sBlockBits[k];
+    const uint2 recip_w = sRecip[width];
+    int* out = sSmp + (k * BLOCKS * CH + ch) * SB + s;
+    int off = BASE + (fld >> 9);
+#pragma unroll 4
+    for (int blk = 0; blk < BLOCKS; ++blk, off += bb)
+      out[blk * CH * SB] =
+          width > 0 ? iquant(extract(wf, W, off, width), width, scale,
+                             recip_w)
+                    : 0;
+  }
+  __syncthreads();
+
+  // 3. V = (SYN_8 . samples) >> 15, a thread per (row q, V lane j), into
+  // the timeline's slot HIST * CH + q
+  {
+    const int j = tid & 15;
+    int syn_j[SB];
 #pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      const int width = sBits[fc + s];
-      smp[s] = width > 0 ? iquant(extract(wf, W, off0 + sPre[fc + s], width),
-                                  width, sSf[fc + s])
-                         : 0;
-    }
-    int* v = sV + r * 16;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      int acc = 0;
-#pragma unroll
-      for (int s = 0; s < SB; ++s)
-        acc = wadd(acc, wmul(smp[s], sSyn[j * SB + s]));
-      v[j] = acc >> 15;
+    for (int s = 0; s < SB; ++s) syn_j[s] = __ldg(syn + j * SB + s);
+    const int4* smp4 = reinterpret_cast<const int4*>(sSmp);
+    for (int q = tid >> 4; q < rows; q += THREADS / 16) {
+      const int4 a = smp4[2 * q], b = smp4[2 * q + 1];
+      int acc = wmul(a.x, syn_j[0]);
+      acc = wadd(acc, wmul(a.y, syn_j[1]));
+      acc = wadd(acc, wmul(a.z, syn_j[2]));
+      acc = wadd(acc, wmul(a.w, syn_j[3]));
+      acc = wadd(acc, wmul(b.x, syn_j[4]));
+      acc = wadd(acc, wmul(b.y, syn_j[5]));
+      acc = wadd(acc, wmul(b.z, syn_j[6]));
+      acc = wadd(acc, wmul(b.w, syn_j[7]));
+      sV[(HIST * CH + q) * 16 + j] = acc >> 15;
     }
   }
   __syncthreads();
 
   // 4a. synthesis, a thread per output sample o = ((f * CH + ch) * 16 +
-  // blk) * 8 + sb (the pcm layout); compacted block t = rank * 16 + blk
-  // reads taps t - d, d = 0..9: even d columns 0-7, odd d columns 8-15,
-  // h0[-(t - d) - 1] before the first compacted block
-  const int nv = sMisc[0];
+  // blk) * 8 + sb (the pcm layout): compacted block t = rank * 16 + blk
+  // reads timeline slots HIST + t - d, d = 0..9, even d columns 0-7, odd
+  // d columns 8-15
   constexpr int PER_FRAME = CH * BLOCKS * SB;
+  const int sb = tid & 7;
+  int taps[HIST];
+#pragma unroll
+  for (int d = 0; d < HIST; ++d) taps[d] = __ldg(proto + sb * HIST + d);
   int16_t* pl = pcm + (size_t)n * F * PER_FRAME;
   for (int o = tid; o < F * PER_FRAME; o += THREADS) {
     const int k = sRank[o / PER_FRAME];
     int out = 0;
     if (k >= 0) {
-      const int ch = (o / (BLOCKS * SB)) % CH;
-      const int blk = (o / SB) % BLOCKS, sb = o % SB;
-      const int t = k * BLOCKS + blk;
+      const int ch = (o / (BLOCKS * SB)) % CH, blk = (o >> 3) & 15;
+      const int* p = sV + ((HIST + k * BLOCKS + blk) * CH + ch) * 16 + sb;
       int acc = 0;
 #pragma unroll
-      for (int d = 0; d < HIST; ++d) {
-        const int tt = t - d;
-        const int col = (d & 1) * 8 + sb;
-        const int v =
-            tt >= 0
-                ? sV[((sComp[tt >> 4] * BLOCKS + (tt & 15)) * CH + ch) * 16 +
-                     col]
-                : sH0[(ch * HIST + (-tt - 1)) * 16 + col];
-        acc = wadd(acc, wmul(v, sProto[sb * HIST + d]));
-      }
+      for (int d = 0; d < HIST; ++d)
+        acc = wadd(acc, wmul(p[(d & 1) * 8 - d * CH * 16], taps[d]));
       out = min(max(acc >> 15, -0x7FFF), 0x7FFF);
     }
     pl[o] = (int16_t)out;
   }
 
   // 4b. history: the last valid frame's blocks 15..6, else hist as given
-  const int lastf = sMisc[1];
   int* ho = hist_out + (size_t)n * 2 * HIST * 16;
   for (int i = tid; i < 2 * HIST * 16; i += THREADS) {
-    const int ch = i / (HIST * 16), j = (i / 16) % HIST, col = i % 16;
-    int v = hl[i];
-    if (ch < CH && nv > 0)
-      v = sV[((lastf * BLOCKS + (BLOCKS - 1 - j)) * CH + ch) * 16 + col];
-    ho[i] = v;
+    const int ch = i / (HIST * 16), j = (i >> 4) % HIST, col = i & 15;
+    ho[i] = ch < CH && nv > 0
+                ? sV[((HIST + nv * BLOCKS - 1 - j) * CH + ch) * 16 + col]
+                : hl[i];
   }
 }
 
 template <int CH>
 int launch(const void* words, const void* hist, const void* active,
            const void* n_valid, const void* syn, const void* proto,
-           const void* off8, void* pcm, void* hist_out, void* error,
-           void* frame_bits, int N, int F, int W, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(int) * ((size_t)F * BLOCKS * CH * 16 + 3 * (size_t)F * CH * SB +
-                     4 * (size_t)F + CH * HIST * 16 + 16 * SB + SB * HIST +
-                     4 * SB + 4);
+           const void* off8, const void* recip, void* pcm, void* hist_out,
+           void* error, void* frame_bits, int N, int F, int W,
+           cudaStream_t stream) {
+  const size_t smem = sizeof(int) * shared_ints<CH>(F);
   if (smem > SMEM_DEFAULT) {
     const cudaError_t e = cudaFuncSetAttribute(
         sbc_kernel<CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -336,8 +383,8 @@ int launch(const void* words, const void* hist, const void* active,
   sbc_kernel<CH><<<N, THREADS, smem, stream>>>(
       (const int*)words, (const int*)hist, (const bool*)active,
       (const int*)n_valid, (const int*)syn, (const int*)proto,
-      (const int*)off8, (int16_t*)pcm, (int*)hist_out, (bool*)error,
-      (int*)frame_bits, F, W);
+      (const int*)off8, (const int*)recip, (int16_t*)pcm, (int*)hist_out,
+      (bool*)error, (int*)frame_bits, F, W);
   return (int)cudaGetLastError();
 }
 
@@ -346,14 +393,26 @@ int launch(const void* words, const void* hist, const void* active,
 extern "C" int esp_sbc_decode(const void* words, const void* hist,
                               const void* active, const void* n_valid,
                               const void* syn, const void* proto,
-                              const void* off8, void* pcm, void* hist_out,
-                              void* error, void* frame_bits, int N, int F,
-                              int W, int CH, void* stream) {
+                              const void* off8, const void* recip,
+                              void* pcm, void* hist_out, void* error,
+                              void* frame_bits, int N, int F, int W, int CH,
+                              void* stream) {
   if (N <= 0 || F <= 0) return (int)cudaGetLastError();
   if ((CH != 1 && CH != 2) || W < CH + 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return CH == 1 ? launch<1>(words, hist, active, n_valid, syn, proto, off8,
-                             pcm, hist_out, error, frame_bits, N, F, W, s)
+                             recip, pcm, hist_out, error, frame_bits, N, F,
+                             W, s)
                  : launch<2>(words, hist, active, n_valid, syn, proto, off8,
-                             pcm, hist_out, error, frame_bits, N, F, W, s);
+                             recip, pcm, hist_out, error, frame_bits, N, F,
+                             W, s);
+}
+
+// K6's registers, local and static shared bytes and largest block on
+// the current device (resources.cuh).
+extern "C" int esp_sbc_resources(int* out, const char** names, int cap) {
+  const void* fns[] = {(const void*)sbc_kernel<1>,
+                       (const void*)sbc_kernel<2>};
+  const char* kernel_names[] = {"sbc_kernel<1>", "sbc_kernel<2>"};
+  return kernel_resources(fns, kernel_names, 2, out, names, cap);
 }

@@ -295,8 +295,8 @@ def dense_compose_unfused(coeffs, recs, nfinal, intra_q, non_intra_q,
     espflix_tpu.models.mpeg1.dense_compose that the mesh runs.
 
       * ref_planes None (use_pallas_mocomp=True, mpeg1.py:508-519): each
-        plane predicted from the reference slot (K3P, rule A: three
-        launches, y then u then v);
+        plane predicted from the reference slot (K3P, rule A: two
+        launches, y, then u and v together);
       * ref_planes = (y, u, v) full-height reference planes with row0_mb
         (the 'space' split, mpeg1.py:410-423): frames hold the band of
         MB rows [row0_mb, row0_mb + mb_height) and each plane is
@@ -322,9 +322,11 @@ def dense_compose_unfused(coeffs, recs, nfinal, intra_q, non_intra_q,
     if ref_planes is None:
         lanes = torch.arange(recs.shape[0], device=recs.device)
         ref_slot = 1 - frames["parity"].long()
-        preds = [mocomp_ops.predict_plane(frames[k][lanes, ref_slot], mh,
-                                          mv, S)
-                 for k, (mh, mv), S in zip("yuv", mvs, (16, 8, 8))]
+        preds = [mocomp_ops.predict_plane(frames["y"][lanes, ref_slot],
+                                          mv_h, mv_v, 16),
+                 *mocomp_ops.predict_chroma_pair(
+                     frames["u"][lanes, ref_slot],
+                     frames["v"][lanes, ref_slot], *mvs[1])]
     else:
         preds = [mocomp_ops.predict_plane_rows(rf, mh, mv, S, row0_mb)
                  for rf, (mh, mv), S in zip(ref_planes, mvs, (16, 8, 8))]

@@ -132,12 +132,13 @@ def decode_frames_batched(words, hist, active=None, n_valid=None, *,
 
 
 def shared_bytes(n_frames: int, channels: int) -> int:
-    """Dynamic shared memory of one K6 block (csrc/sbc.cu's layout): V
-    [F][16][CH][16], bits / scale factors / offsets [F][CH][8], four
-    per-frame words, the history and the three tables."""
+    """Dynamic shared memory of one K6 block (csrc/sbc.cu's layout): the
+    V timeline [10 + F*16][CH][16], the samples [F*16][CH][8], IQUANT's
+    reciprocals, the fields [F][CH][8], three per-frame words and the
+    valid count."""
     F, CH = n_frames, channels
-    ints = (F * BLOCKS * CH * 16 + 3 * F * CH * SUBBANDS + 4 * F
-            + CH * HIST * 16 + 16 * 8 + 8 * 10 + 4 * 8 + 4)
+    ints = ((HIST + F * BLOCKS) * CH * 16 + F * BLOCKS * CH * SUBBANDS
+            + 2 * sbc_ops.IQUANT_LEVELS + F * CH * SUBBANDS + 3 * F + 2)
     return 4 * ints
 
 
@@ -165,6 +166,7 @@ def _decode_cuda(words, hist, active, n_valid, *, n_frames: int,
     if proto is None:
         proto = sbc_ops.device_table("PROTO_8", dev)
     off8 = sbc_ops.device_table("OFFSET_8", dev)
+    recip = sbc_ops.device_table("IQUANT_RECIP", dev)
     # the kernel takes no null pointers: omitted masks are made here
     if active is None:
         active = torch.ones(N, dtype=torch.bool, device=dev)
@@ -185,7 +187,7 @@ def _decode_cuda(words, hist, active, n_valid, *, n_frames: int,
     error = torch.empty((N, F), dtype=torch.bool, device=dev)
     frame_bits = torch.empty((N, F), dtype=torch.int32, device=dev)
     build.launch("esp_sbc_decode", words, hist, active, n_valid, syn, proto,
-                 off8, pcm, new_hist, error, frame_bits, N, F, W, CH)
+                 off8, recip, pcm, new_hist, error, frame_bits, N, F, W, CH)
     launches += 1
     return pcm, new_hist, error, frame_bits
 

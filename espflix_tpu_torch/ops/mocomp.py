@@ -101,30 +101,55 @@ def predict_plane_rows_torch(ref_full, mv_h, mv_v, mb_size: int,
     return _predict_band_torch(ref_full, mv_h, mv_v, mb_size, row0_mb, True)
 
 
+def predict_chroma_pair_torch(ref_u, ref_v, mv_h, mv_v):
+    """Plain form of predict_chroma_pair (rule A)."""
+    return (predict_plane_torch(ref_u, mv_h, mv_v, 8),
+            predict_plane_torch(ref_v, mv_h, mv_v, 8))
+
+
+def _predict_operands(refs, mv_h, mv_v, S: int, row0_mb: int):
+    """Check K3P's operands (reference planes `refs` sharing the
+    vectors) and allocate one output band for each plane."""
+    if refs[0].device.type != "cuda":
+        raise ValueError(f"unsupported device {refs[0].device}")
+    from espflix_tpu_torch import build
+
+    N, H, W = refs[0].shape
+    mbh, mbw = mv_h.shape[1], mv_h.shape[2]
+    if S not in (8, 16) or mbw * S != W or not 0 <= row0_mb \
+            or (row0_mb + mbh) * S > H:
+        raise ValueError(f"band of {mbh} MB rows at {row0_mb} (S={S}) "
+                         f"does not fit a {H}x{W} plane")
+    dev = refs[0].device
+    for ref in refs:
+        build.check(ref, dev, torch.uint8, (N, H, W))
+    build.check(mv_h, dev, torch.int32, (N, mbh, mbw))
+    build.check(mv_v, dev, torch.int32, (N, mbh, mbw))
+    outs = [torch.empty((N, mbh * S, W), dtype=torch.uint8, device=dev)
+            for _ in refs]
+    # K3P reads reference rows as aligned 32-bit words and stores each
+    # MB row as one S-byte vector
+    if W % S or any(r.data_ptr() % 4 for r in refs) \
+            or any(o.data_ptr() % S for o in outs):
+        raise ValueError(f"K3P needs W % {S} == 0 (W={W}), 4-byte "
+                         f"aligned references and {S}-byte aligned "
+                         f"outputs")
+    return outs
+
+
 def _predict(ref, mv_h, mv_v, mb_size: int, row0_mb: int, clip_taps: bool):
     """CPU tensors: the plain form; CUDA tensors: one K3P launch."""
     global launches_predict
     if ref.device.type == "cpu":
         return _predict_band_torch(ref, mv_h, mv_v, mb_size, row0_mb,
                                    clip_taps)
-    if ref.device.type != "cuda":
-        raise ValueError(f"unsupported device {ref.device}")
     from espflix_tpu_torch import build
 
+    out, = _predict_operands([ref], mv_h, mv_v, mb_size, row0_mb)
     N, H, W = ref.shape
-    mbh, mbw = mv_h.shape[1], mv_h.shape[2]
-    S = mb_size
-    if S not in (8, 16) or mbw * S != W or not 0 <= row0_mb \
-            or (row0_mb + mbh) * S > H:
-        raise ValueError(f"band of {mbh} MB rows at {row0_mb} (S={S}) "
-                         f"does not fit a {H}x{W} plane")
-    dev = ref.device
-    build.check(ref, dev, torch.uint8)
-    build.check(mv_h, dev, torch.int32, (N, mbh, mbw))
-    build.check(mv_v, dev, torch.int32, (N, mbh, mbw))
-    out = torch.empty((N, mbh * S, W), dtype=torch.uint8, device=dev)
-    build.launch("esp_predict", ref, mv_h, mv_v, out, N, H, W, S, mbw, mbh,
-                 row0_mb, int(clip_taps))
+    build.launch("esp_predict", ref, ref, mv_h, mv_v, out, out, 1, N, H, W,
+                 mb_size, mv_h.shape[2], mv_h.shape[1], row0_mb,
+                 int(clip_taps))
     launches_predict += 1
     return out
 
@@ -141,10 +166,20 @@ def predict_plane(ref, mv_h, mv_v, mb_size: int):
 
 def predict_chroma_pair(ref_u, ref_v, mv_h, mv_v):
     """Both chroma planes from chroma-scale vectors (the port of
-    predict_chroma_pair_phase / _packed): two K3P launches on a card.
-    Returns (pred_u, pred_v)."""
-    return (predict_plane(ref_u, mv_h, mv_v, 8),
-            predict_plane(ref_v, mv_h, mv_v, 8))
+    predict_chroma_pair_phase / _packed; rule A).  CPU tensors take the
+    plain form (predict_chroma_pair_torch); CUDA tensors launch K3P
+    once for both planes.  Returns (pred_u, pred_v)."""
+    global launches_predict
+    if ref_u.device.type == "cpu":
+        return predict_chroma_pair_torch(ref_u, ref_v, mv_h, mv_v)
+    from espflix_tpu_torch import build
+
+    out_u, out_v = _predict_operands([ref_u, ref_v], mv_h, mv_v, 8, 0)
+    N, H, W = ref_u.shape
+    build.launch("esp_predict", ref_u, ref_v, mv_h, mv_v, out_u, out_v, 2,
+                 N, H, W, 8, mv_h.shape[2], mv_h.shape[1], 0, 0)
+    launches_predict += 1
+    return out_u, out_v
 
 
 def predict_plane_rows(ref_full, mv_h, mv_v, mb_size: int,

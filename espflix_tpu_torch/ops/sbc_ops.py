@@ -17,15 +17,50 @@ from espflix_tpu_torch.ops.intwrap import wrap32
 
 _tables: dict = {}
 
+# IQUANT's divisors 2^level - 1 (1 for levels 0 and 1) take numerators
+# below 2^NUMERATOR_BITS (iquant_exact's first step: (raw << 1 | 1) <<
+# min(scale, 13) with raw < 2^16)
+IQUANT_LEVELS = 17
+NUMERATOR_BITS = 30
+
+
+def iquant_reciprocals() -> list[tuple[int, int]]:
+    """K6's multiply-shift for each IQUANT divisor d = max(2^level - 1,
+    1), level 0..16: (m, sh) with a // d == ((a << 2) * m) >> (32 + sh)
+    for every 0 <= a < 2^30 (Granlund and Montgomery; Hacker's Delight
+    10-9).  The shift by 2 lets d = 1 take m = 2^30 < 2^32.  With m =
+    ceil(2^k / d), k = 30 + sh, and e = m * d - 2^k, the product equals
+    a / d + a * e / (d * 2^k), so the floor is exact when e * a < 2^k
+    for the largest a; sh is the least that holds it."""
+    out = []
+    for level in range(IQUANT_LEVELS):
+        d = max((1 << level) - 1, 1)
+        sh = 0
+        while True:
+            k = NUMERATOR_BITS + sh
+            m = -(-(1 << k) // d)
+            if (m * d - (1 << k)) * ((1 << NUMERATOR_BITS) - 1) < (1 << k):
+                break
+            sh += 1
+        assert m < 1 << 31          # an int32 table holds it
+        out.append((m, sh))
+    return out
+
+
+# int32[17, 2]: each level's (m, sh), K6's table
+IQUANT_RECIP = iquant_reciprocals()
+
 
 def device_table(name: str, device) -> torch.Tensor:
-    """sbc_tables.<name> (OFFSET_8, SYN_8, PROTO_8) as int32 on `device`,
-    uploaded once per device.  Read-only: callers must not write it."""
+    """sbc_tables.<name> (OFFSET_8, SYN_8, PROTO_8), or this module's
+    IQUANT_RECIP, as int32 on `device`, uploaded once per device.
+    Read-only: callers must not write it."""
     key = (name, torch.device(device))
     t = _tables.get(key)
     if t is None:
-        t = _tables[key] = torch.as_tensor(getattr(T, name),
-                                           dtype=torch.int32, device=device)
+        src = IQUANT_RECIP if name == "IQUANT_RECIP" else getattr(T, name)
+        t = _tables[key] = torch.as_tensor(src, dtype=torch.int32,
+                                           device=device)
     return t
 
 

@@ -2,6 +2,7 @@
 commits on one card.
 
     python3 espflix_tpu_torch/tools/kernel_ab.py [--tree CHECKOUT] [--label X]
+                                                 [--only K3P_A,SBC,...]
     python3 espflix_tpu_torch/tools/kernel_ab.py --serve 256 [--tree ...]
 
 imports espflix_tpu_torch from CHECKOUT (default: the checkout that holds
@@ -19,16 +20,25 @@ K1F's output in chip_smoke's flat_kernels configuration, K3F
 random frames restored before every run; and K4
 (composite.synthesize_field_pair_parts, NTSC and PAL) on K3's
 presented planes of the I-heavy tick, as chip_smoke.py's phase 3 feeds
-it.  K1 and K3F are the controls where a change touches K2 and K4.
+it; K3P (mocomp.predict_plane for y, predict_chroma_pair for u and v)
+with the P-heavy tick's vectors onto seeded random reference planes
+(`K3P_A`, rule A, as chip_smoke.py times it) and
+mocomp.predict_plane_rows on chip_smoke.py's band, MB rows 3-8 with
+seeded random vectors past the edges (`K3P_B`, rule B), and `K3P_A`'s
+calls on its first 64 lanes, a shard of chip_smoke.py's mesh phase
+(`K3P_S`).  K1 and K3F are the controls where a change
+touches other kernels.  --only times the named kernels alone and
+skips the ptxas report.
 Each gets the median of --reps runs by two rulers: `call_ms`, the
 call's latency, the host's enqueue included (chip_smoke.py's `ms`), and
 `device_ms`, the device's work alone (the card sleeps while the host
 enqueues), and a checksum of its outputs (for K3 / K3F the presented
 planes and the frames).  It also compiles the checkout's
-csrc/compose.cu, idct.cu and composite.cu with `nvcc -Xptxas -v` and
-reports each dense-phase kernel's and K4's registers, stack frame,
-spill and static shared bytes.  Prints one JSON line with the label,
-the card's name and power limit, and those numbers.
+csrc/compose.cu, idct.cu, composite.cu and sbc.cu with `nvcc -Xptxas
+-v` and reports each dense-phase kernel's, K3P's, K4's and K6's
+registers, stack frame, spill and static shared bytes.  Prints one
+JSON line with the label, the card's name and power limit, and those
+numbers.
 
 With --serve LANES it times decode-only serving instead, as chip_smoke.py's
 decode phase runs it: a service of 2 titles x 4 GOPs behind the local HTTP
@@ -54,17 +64,26 @@ from pathlib import Path
 BUSY_CYCLES = 20_000_000    # as chip_smoke.py: ~10 ms at 1,980 MHz
 
 
-# the kernels of compose.cu / idct.cu / composite.cu that the ptxas
-# report names, keyed by a part of their mangled names (a checkout's K2
-# is either a plain kernel or a template on its vector width, of which
-# the bench takes 8)
-PTXAS_SOURCES = ("compose.cu", "idct.cu", "composite.cu")
+# the kernels of compose.cu / idct.cu / composite.cu / sbc.cu that the
+# ptxas report names, keyed by a part of their mangled names (a
+# checkout's K2 is either a plain kernel or a template on its vector
+# width, of which the bench takes 8; its K3P a template on the edge rule
+# alone or on the MB size too)
+PTXAS_SOURCES = ("compose.cu", "idct.cu", "composite.cu", "sbc.cu")
 PTXAS_KERNELS = {"compose_put_kernelILb0": "compose_put_kernel<false>",
                  "compose_put_kernelILb1": "compose_put_kernel<true>",
+                 "predict_kernelILb0": "predict_kernel<false>",
+                 "predict_kernelILb1": "predict_kernel<true>",
+                 "predict_kernelILi16ELb0": "predict_kernel<16, false>",
+                 "predict_kernelILi8ELb0": "predict_kernel<8, false>",
+                 "predict_kernelILi16ELb1": "predict_kernel<16, true>",
+                 "predict_kernelILi8ELb1": "predict_kernel<8, true>",
                  "idct_flat_kernel": "idct_flat_kernel",
                  "idct_T_kernelE": "idct_T_kernel",
                  "idct_T_kernelILi8E": "idct_T_kernel<8>",
-                 "composite_parts_kernel": "composite_parts_kernel"}
+                 "composite_parts_kernel": "composite_parts_kernel",
+                 "sbc_kernelILi1": "sbc_kernel<1>",
+                 "sbc_kernelILi2": "sbc_kernel<2>"}
 
 
 def time_ms(fn, reps: int, busy: bool, setup=None) -> float:
@@ -183,7 +202,10 @@ def main() -> int:
     ap.add_argument("--serve", type=int, default=0, metavar="LANES",
                     help="time decode-only serving at LANES lanes instead")
     ap.add_argument("--ticks", type=int, default=16)
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
+    only = set(filter(None, args.only.split(",")))
     tree = os.path.abspath(args.tree)
     sys.path[0] = tree          # the checkout's package, not this one's
 
@@ -319,6 +341,8 @@ def main() -> int:
                  recs_f)):
             runs[name] = lambda fn=fn, res=res, r=r: compose(fn, res, r)
             setups[name] = restore
+        if label == "P":
+            recs_p, frames_p = recs, frames0
         if label == "I":
             # K4 on K3's presented planes of this tick, as chip_smoke.py
             restore()
@@ -331,8 +355,37 @@ def main() -> int:
                     CO.synthesize_field_pair_parts(
                         *comp_args, pal=pal, tmpl=c.templates,
                         dither=c.dither)
+    # K3P: y + u + v with the P-heavy tick's vectors (rule A), and the
+    # band of MB rows 3-8 with random vectors past the edges (rule B)
+    lanes = torch.arange(N, device=dev)
+    refs = [frames_p[key][lanes, 1 - frames_p["parity"].long()].contiguous()
+            for key in "yuv"]
+    _kind, mv_h, mv_v = MC.mb_fields(recs_p, mbw, mbh)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    rnd = [torch.randint(-48, 49, mv_h.shape, generator=g,
+                         dtype=torch.int32).to(dev) for _ in range(2)]
+
+    def scaled(mh, mv):
+        return [(mh, mv), (mh >> 1, mv >> 1), (mh >> 1, mv >> 1)]
+
+    mvs_p, mvs_r = scaled(mv_h, mv_v), scaled(*rnd)
+    band = [(mh[:, 3:9].contiguous(), mv[:, 3:9].contiguous())
+            for mh, mv in mvs_r]
+    runs["K3P_A"] = lambda: [MC.predict_plane(refs[0], *mvs_p[0], 16),
+                             *MC.predict_chroma_pair(*refs[1:], *mvs_p[1])]
+    runs["K3P_B"] = lambda: [MC.predict_plane_rows(r, mh, mv, S, 3)
+                             for r, (mh, mv), S in zip(refs, band,
+                                                       (16, 8, 8))]
+    # one shard's calls in chip_smoke.py's mesh phase: 256 serving lanes
+    # on 4 shards
+    shard = [t[:64].contiguous() for t in refs]
+    mvs_s = [tuple(m[:64].contiguous() for m in pair) for pair in mvs_p]
+    runs["K3P_S"] = lambda: [MC.predict_plane(shard[0], *mvs_s[0], 16),
+                             *MC.predict_chroma_pair(*shard[1:], *mvs_s[1])]
     out = {}
     for name, fn in runs.items():
+        if only and name not in only:
+            continue
         setup = setups.get(name)
         out[name] = dict(call_ms=time_ms(fn, args.reps, False, setup),
                          device_ms=time_ms(fn, args.reps, True, setup))
@@ -341,7 +394,8 @@ def main() -> int:
         out[name]["checksum"] = checksum(fn())
     print(json.dumps({"label": args.label or tree, "card": card(),
                       "lanes": N, "reps": args.reps, "kernels": out,
-                      "ptxas": ptxas_report(tree)}), flush=True)
+                      "ptxas": {} if only else ptxas_report(tree)}),
+          flush=True)
     return 0
 
 
