@@ -17,7 +17,10 @@ line is printed):
    (compose_put_kernel<false / true>), of K2 at each vector width
    (idct_T_kernel<V>), of K2F (idct_flat_kernel), of K3P
    (predict_kernel<S, rule>), of K4 (composite_parts_kernel) and of K6
-   (sbc_kernel<CH>);
+   (sbc_kernel<CH>); the native library (native/: the TS demuxer and the
+   session feed; the run fails without it) and the hybrid parser's
+   tokenizer (oracle/*.cpp with the port's vlc_luts.h, g++, into
+   build/oracle-<hash>/);
 3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
    B over a band), the sequential scan K1S and the SBC decode K6 --
@@ -62,10 +65,24 @@ line is printed):
    of 4 GOPs, two injected faults, a snapshot at tick 8 restored into a
    second fleet that runs 4 ticks): every lane decodes, the faults are
    contained and resynced, every kernel launched, the taps match their
-   checksums;
+   checksums, the host split (gather_packed, gather, batch_assemble,
+   device chain, untimed) per tick.  Every serving fleet of phases 5-8
+   runs its sessions on the native session feed (fleet-wide batched
+   and packed pops); a session on the Python feed fails the run;
 6. serving B: the same lanes, service and HTTP server, 8 ticks, once
    with the kernels and once through the plain forms: every TickResult
    and carry identical;
+5p. pooled serving: Fleet.run_chunk_full_pooled with W = min(8,
+   cores) host worker processes (runtime/hostpool.py) against
+   in-process run_chunk_full at serving A's lanes over the same HTTP
+   service, 8 ticks in chunks of 4 after a warm-up chunk: flags, pts,
+   checksums, taps and audio flags equal; then the pool alone at 4x
+   the lanes (1,024) over file:// for 16 ticks, timed (ms/tick wall,
+   the fleet's timers, the untimed rest); while each pool runs,
+   nvidia-smi lists no worker and at most one context, and every worker
+   reports CUDA_VISIBLE_DEVICES="" and no torch import; the workers'
+   start time and peak RSS, and what a worker importing torch would
+   cost, are printed;
 7. decode-only serving: serve_scenario --stage decode over the same
    HTTP service at the same lanes, 16 ticks pipelined (tick_submit /
    tick_collect) and 16 chunked (run_chunk, K = 4), two injected faults
@@ -73,6 +90,10 @@ line is printed):
    K1F, K2F, K3F and K6 all launched; then 4 ticks per dispatch, and 4 of
    a one-lane fleet (the small-fleet branch), through the kernels and
    through the plain forms: every TickResult field and carry identical;
+   then the hybrid parser (the native tokenizer on the host, K2F and
+   K3F on the card) against the device parser at the same lanes, 8
+   ticks pipelined without faults: YUV planes, flags and pts equal,
+   each with its ms/tick;
 8. the mesh: a 4-shard 'streams' mesh (one card per shard when four
    are visible, else cuda:0 four times) over the same HTTP service and
    lanes -- the pallas parser (K1, K2, K3P per shard) and the device
@@ -337,6 +358,27 @@ def record_results(fleet, method: str = "run_chunk_full") -> list:
     return rs
 
 
+def build_native_fleet(*a, **kw):
+    """serve_scenario.build_fleet, raising unless every session it
+    attached feeds through the native session feed (a broken or missing
+    native library fails the run instead of serving on the Python
+    feed)."""
+    from espflix_tpu_torch.tools import serve_scenario as SS
+    fleet = SS.build_fleet(*a, **kw)
+    require_native_feeds("build_fleet", fleet)
+    return fleet
+
+
+def require_native_feeds(label, fleet):
+    from espflix_tpu_torch.streaming import native_feed as NF
+    bad = [i for i, s in enumerate(fleet.sessions)
+           if s is not None and not isinstance(s.feed, NF.NativeStreamFeed)]
+    if bad:
+        raise AssertionError(f"{label}: lanes {bad[:8]} feed through "
+                             f"{type(fleet.sessions[bad[0]].feed).__name__}, "
+                             "not the native session feed")
+
+
 def kernel_counters() -> dict:
     """Kernel name -> (wrapper module, its launch-count attribute)."""
     from espflix_tpu_torch.models import sbc as dsbc
@@ -491,7 +533,7 @@ def scan_chain_ms(steps: int, clock_hz: float) -> float:
 @contextlib.contextmanager
 def http_service(seed: int = 0):
     """The serving phases' service (2 titles of 4 GOPs) behind the local
-    HTTP Range server; yields its URL."""
+    HTTP Range server; yields its URL and its directory."""
     from espflix_tpu_torch import build
     from espflix_tpu_torch.tools import serve_scenario as SS
 
@@ -504,7 +546,7 @@ def http_service(seed: int = 0):
             f"{time.perf_counter() - t0:.1f} s")
         url, shutdown = SS.start_http_service(root)
         try:
-            yield url
+            yield url, root
         finally:
             shutdown()
 
@@ -516,14 +558,15 @@ def serve_phase_a(dev, url: str, lanes: int, ticks: int, smi: str,
     import torch
     from espflix_tpu_torch.tools import serve_scenario as SS
 
-    fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
+    fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev)
     rs = record_results(fleet)
     torch.cuda.synchronize()
     reset_counts()
     stats, snap = SS.run_scenario(fleet, ticks, seed=seed, faults=2,
                                   snapshot_at=ticks // 2, dispatch="full")
     counts = read_counts("serving A", CHAIN_KERNELS)
-    fleet2 = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
+    require_native_feeds("serving A after its run", fleet)
+    fleet2 = build_native_fleet(url, lanes, 2, stage="full", device=dev)
     restored = fleet2.restore(snap)
     rstats, _ = SS.run_scenario(fleet2, 4, seed=seed + 1, faults=0,
                                 dispatch="full")
@@ -538,12 +581,16 @@ def serve_phase_a(dev, url: str, lanes: int, ticks: int, smi: str,
                              f"caught ({stats.errors} errors, "
                              f"{stats.resyncs} resyncs)")
     tm = fleet.timers.acc
-    host_ms = 1000 * (tm.get("gather", 0) + tm.get("batch_assemble", 0))
+    host_ms = 1000 * (tm.get("gather_packed", 0) + tm.get("gather", 0)
+                      + tm.get("batch_assemble", 0))
     dev_ms = 1000 * (tm.get("device_chain", 0) + tm.get("host_sync", 0))
-    log(f"[serve A] {lanes} lanes x {ticks} ticks over HTTP: "
-        f"{1000 * stats.wall_s / ticks:.1f} ms/tick wall, host "
-        f"(gather, assemble) {host_ms / ticks:.1f} ms/tick, device chain "
-        f"(launch + sync) {dev_ms / ticks:.1f} ms/tick; frames "
+    split = {k: round(1000 * v / ticks, 2) for k, v in tm.items()}
+    log(f"[serve A] {lanes} lanes x {ticks} ticks over HTTP on the native "
+        f"feed: {1000 * stats.wall_s / ticks:.1f} ms/tick wall, host "
+        f"(gather_packed, gather, assemble) {host_ms / ticks:.1f} ms/tick, "
+        f"device chain (launch + sync) {dev_ms / ticks:.1f} ms/tick, "
+        f"untimed {1000 * stats.wall_s / ticks - sum(split.values()):.1f} "
+        f"ms/tick; timers ms/tick {split}; frames "
         f"{stats.frames}, min/lane {int(stats.frames_per_lane.min())}, "
         f"errors {stats.errors}, resyncs {stats.resyncs}, actions "
         f"{stats.actions}, restored {restored} lanes -> {rstats.frames} "
@@ -563,7 +610,7 @@ def serve_phase_b(dev, url: str, lanes: int, ticks: int = 8,
     tap_lanes = (0, lanes // 2 + 1)
     runs = []
     for plain in (False, True):
-        fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev)
+        fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev)
         rs = record_results(fleet)
         with plain_forms() if plain else contextlib.nullcontext():
             SS.run_scenario(fleet, ticks, seed=seed, faults=1,
@@ -984,7 +1031,7 @@ def decode_serving(dev, url: str, lanes: int, smi: str, ticks: int = 16,
     torch.cuda.synchronize()
     reset_counts()
     for dispatch in ("pipelined", "chunk"):
-        fleet = SS.build_fleet(url, lanes, 2, device=dev)
+        fleet = build_native_fleet(url, lanes, 2, device=dev)
         stats, _ = SS.run_scenario(fleet, ticks, seed=seed, faults=2,
                                    dispatch=dispatch)
         torch.cuda.synchronize()
@@ -1027,7 +1074,7 @@ def decode_parity(dev, url: str, lanes: int, ticks: int = 4,
             ("one-lane tick", 1, "pipelined", "tick_collect")):
         runs = []
         for plain in (False, True):
-            fleet = SS.build_fleet(url, n, 2, device=dev)
+            fleet = build_native_fleet(url, n, 2, device=dev)
             rs = record_results(fleet, method)
             reset_counts()
             with plain_forms() if plain else contextlib.nullcontext():
@@ -1059,6 +1106,237 @@ def decode_parity(dev, url: str, lanes: int, ticks: int = 4,
         log(f"[decode {label}] {n} lanes x {ticks} ticks over HTTP: kernel "
             f"path == plain path ({len(keys) + 3} TickResult fields x "
             f"{ticks} + 4 carries; kernel launches {ck})")
+
+
+def compute_app_pids() -> list[str]:
+    """The pids nvidia-smi lists as holding a CUDA context."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"nvidia-smi --query-compute-apps: "
+                             f"{r.stderr.strip()}")
+    return r.stdout.split()
+
+
+def torch_worker_cost() -> dict:
+    """What a worker that imported torch would cost: a fresh interpreter
+    under CUDA_VISIBLE_DEVICES="" that loads the pool's module (as a
+    worker does) and then imports torch: the import's seconds and the
+    resident set (KiB, runtime/hostpool._rss_kib) before and after."""
+    import os
+    from pathlib import Path
+    code = ("import json, time; "
+            "from espflix_tpu_torch.runtime.hostpool import _rss_kib; "
+            "before = _rss_kib(); t0 = time.perf_counter(); import torch; "
+            "print(json.dumps(dict(import_torch_s=time.perf_counter() - t0,"
+            " before=before, after=_rss_kib())))")
+    root = str(Path(__file__).resolve().parent)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, cwd=root, env=dict(
+                           os.environ, CUDA_VISIBLE_DEVICES="",
+                           PYTHONPATH=root))
+    if r.returncode != 0:
+        raise AssertionError(f"torch_worker_cost: {r.stderr[-500:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
+                 big_lanes: int = 1024, ticks: int = 8,
+                 big_ticks: int = 16) -> dict:
+    """Phase 5p: Fleet.run_chunk_full_pooled with W = min(8, cores)
+    host workers (runtime/hostpool.py) against in-process run_chunk_full
+    on the same card and HTTP service, `ticks` ticks in chunks of 4:
+    flags, pts, checksums, taps and audio flags equal; then the pool
+    alone at `big_lanes` lanes for `big_ticks` ticks over file://
+    (no HTTP server in this process), timed.  While each pool runs,
+    nvidia-smi must list the contexts it listed before the pool started
+    (this process's; nvidia-smi may name it in another pid namespace)
+    and no worker's pid, and every worker must report
+    CUDA_VISIBLE_DEVICES="" and no torch.  The pooled fleet's event log
+    (the workers' admission and audio events, the parent's error and
+    resync events) must equal the in-process fleet's.  Returns the
+    256-lane pooled run's launch counts."""
+    import os
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.runtime.hostpool import HostPool
+    from espflix_tpu_torch.runtime.scheduler import Fleet
+
+    cores = os.cpu_count() or 1
+    W = min(8, cores)
+    while lanes % W or big_lanes % W:
+        W -= 1
+    log(f"[pooled] W = {W} host workers (os.cpu_count() = {cores})")
+    tap = (0, lanes // 2 + 1)
+    keys = ("video_lanes", "pts", "errors", "audio_lanes", "audio_starved",
+            "audio_errors", "field_sum", "pdm_sum", "tap_fields", "tap_pdm")
+
+    def check_workers(label, pool):
+        info = pool.info()
+        pids = compute_app_pids()
+        bad = [w for w in info if w["torch"] or w["cuda_visible"] != ""]
+        if bad:
+            raise AssertionError(f"{label}: workers {bad} imported torch or "
+                                 "see a card")
+        if sorted(pids) != sorted(pids_before) or \
+                {str(w["pid"]) for w in info} & set(pids):
+            raise AssertionError(f"{label}: CUDA contexts held by {pids}, "
+                                 f"{pids_before} before the pool (this "
+                                 f"process {os.getpid()}, workers "
+                                 f"{[w['pid'] for w in info]})")
+        return info, pids
+
+    def events_of(fleet):
+        return [(e.ev.name, e.lane, e.value)
+                for e in fleet.events.dump(10 ** 6)]
+
+    def run_pool(label, n, url_, n_ticks, tap_lanes):
+        fleet = Fleet(n, words_per_lane=8192, parser="pallas",
+                      output=True, device=dev)
+        with HostPool(n, W, 8192, fleet.mb_w, fleet.mb_h) as pool:
+            t0 = time.perf_counter()
+            for i in range(n):
+                if not pool.attach(i, url_):
+                    raise AssertionError(f"{label}: lane {i} bootstrap")
+                pool.call(i, "nav", i % 2)
+                pool.call(i, "play_pause")
+            attach_s = time.perf_counter() - t0
+            fleet.run_chunk_full_pooled(pool, 4, tap_lanes=tap_lanes)
+            torch.cuda.synchronize()
+            fleet.timers.acc.clear()
+            reset_counts()
+            rs = []
+            t0 = time.perf_counter()
+            for _ in range(n_ticks // 4):
+                rs += fleet.run_chunk_full_pooled(pool, 4,
+                                                  tap_lanes=tap_lanes)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_counts(label, CHAIN_KERNELS)
+            info, pids = check_workers(label, pool)
+            start_s = pool.start_s
+            # the warm-up chunk's 4 ticks are in pool.timing too
+            pt = {k: round(1000 * v / pool.timing["ticks"], 2)
+                  for k, v in pool.timing.items() if k != "ticks"}
+        split = {k: round(1000 * v / n_ticks, 2)
+                 for k, v in fleet.timers.acc.items()}
+        frames = sum(int(r.video_lanes.sum()) for r in rs)
+        errors = sum(int(r.errors.sum()) for r in rs)
+        if frames < n or errors:
+            raise AssertionError(f"{label}: {frames} frames, {errors} "
+                                 "lane errors")
+        tap_sums_match(rs, tap_lanes)
+        rss = [w.get("vmhwm_kib", w.get("vmrss_kib")) for w in info]
+        log(f"[{label}] {n} lanes x {n_ticks} ticks (after a 4-tick "
+            f"warm-up), W = {W}: {1000 * wall / n_ticks:.2f} ms/tick wall "
+            f"(33.3 ms is one tick at 30 fps); timers ms/tick {split}; "
+            f"untimed {1000 * wall / n_ticks - sum(split.values()):.2f} "
+            f"ms/tick; pool ms/tick (warm-up included) {pt}; frames "
+            f"{frames}; workers up in {start_s:.2f} s, "
+            f"attach {attach_s:.1f} s, worker RSS (peak, else now) "
+            f"{rss} KiB ({info[0]}), "
+            f"torch in no worker, CUDA_VISIBLE_DEVICES=''; nvidia-smi "
+            f"compute-app pids {pids}, as before the pool (this process "
+            f"{os.getpid()} here); "
+            f"launches {counts} | {smi}")
+        return rs, counts, events_of(fleet)
+
+    # the in-process reference at the same lanes, same service
+    ref_fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev)
+    ref_fleet.run_chunk_full(4, tap_lanes=tap)
+    torch.cuda.synchronize()
+    pids_before = compute_app_pids()
+    if len(pids_before) != 1:
+        raise AssertionError(f"pooled: {pids_before} hold CUDA contexts "
+                             "before the pool starts; expected this "
+                             "process alone")
+    ref_fleet.timers.acc.clear()
+    t0 = time.perf_counter()
+    ref = []
+    for _ in range(ticks // 4):
+        ref += ref_fleet.run_chunk_full(4, tap_lanes=tap)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    split = {k: round(1000 * v / ticks, 2)
+             for k, v in ref_fleet.timers.acc.items()}
+    log(f"[pooled] in-process run_chunk_full {lanes} lanes x {ticks} ticks "
+        f"(after a 4-tick warm-up) over HTTP: {1000 * wall / ticks:.2f} "
+        f"ms/tick wall; timers ms/tick {split}; untimed "
+        f"{1000 * wall / ticks - sum(split.values()):.2f} ms/tick | {smi}")
+    got, counts, ev_got = run_pool(f"pooled {lanes}", lanes, url, ticks,
+                                   tap)
+    if len(got) != len(ref):
+        raise AssertionError("pooled: tick counts differ")
+    for t, (a, b) in enumerate(zip(ref, got)):
+        for key in keys:
+            if not np.array_equal(np.asarray(getattr(a, key)),
+                                  np.asarray(getattr(b, key))):
+                raise AssertionError(f"pooled tick {t}: {key} pooled != "
+                                     "in-process")
+    ev_ref = events_of(ref_fleet)
+    if ev_got != ev_ref:
+        raise AssertionError(f"pooled: events {ev_got[:8]} != in-process "
+                             f"{ev_ref[:8]}")
+    log(f"[pooled] {lanes} lanes x {ticks} ticks: pooled == in-process "
+        f"({len(keys)} TickResult fields x {ticks}, taps {tap}; "
+        f"{len(ev_ref)} events)")
+    run_pool(f"pooled {big_lanes}", big_lanes, file_url, big_ticks, (0,))
+    log(f"[pooled] a worker importing torch would cost "
+        f"{torch_worker_cost()} (fresh interpreter, CUDA_VISIBLE_DEVICES='')")
+    return counts
+
+
+def hybrid_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
+                 seed: int = 0):
+    """Phase 7h: the decode-only Fleet(parser="hybrid") -- the native
+    tokenizer on the host, K2F and K3F on the card -- against
+    Fleet(parser="device") on the same streams and scenario (no faults:
+    a corrupt picture's partial decode is each parser's own), `ticks`
+    ticks pipelined: YUV planes and error flags equal; K2F and K3F
+    launched."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.tools import oracle
+    from espflix_tpu_torch.tools import serve_scenario as SS
+
+    if not oracle.available():
+        raise AssertionError("hybrid: the tokenizer library did not build")
+    runs = []
+    for parser in ("hybrid", "device"):
+        fleet = build_native_fleet(url, lanes, 2, device=dev, parser=parser)
+        if fleet.parser != parser:
+            raise AssertionError(f"hybrid: the fleet runs {fleet.parser}")
+        rs = record_results(fleet, "tick_collect")
+        torch.cuda.synchronize()
+        reset_counts()
+        stats, _ = SS.run_scenario(fleet, ticks, seed=seed, faults=0,
+                                   dispatch="pipelined")
+        torch.cuda.synchronize()
+        counts = read_counts(f"hybrid ({parser})", FLAT_KERNELS[1:])
+        tm = {k: round(1000 * v / ticks, 2)
+              for k, v in fleet.timers.acc.items()}
+        log(f"[hybrid] {parser} parser, {lanes} lanes x {ticks} ticks "
+            f"pipelined over HTTP: {1000 * stats.wall_s / ticks:.1f} "
+            f"ms/tick wall; timers ms/tick {tm} (the hybrid's "
+            f"device_decode holds the host tokenizer); frames "
+            f"{stats.frames}, errors {stats.errors}; launches {counts} "
+            f"| {smi}")
+        runs.append(rs)
+    rh, rd = runs
+    if len(rh) != ticks or len(rd) != ticks:
+        raise AssertionError(f"hybrid: expected {ticks} TickResults")
+    for t, (a, b) in enumerate(zip(rh, rd)):
+        for key in ("video_lanes", "pts", "errors"):
+            if not np.array_equal(getattr(a, key), getattr(b, key)):
+                raise AssertionError(f"hybrid tick {t}: {key} hybrid != "
+                                     "device parser")
+        require_equal(f"hybrid tick {t} planes",
+                      [(a.y, b.y), (a.u, b.u), (a.v, b.v)])
+    if sum(int(r.video_lanes.sum()) for r in rh) < lanes:
+        raise AssertionError("hybrid: too few frames decoded")
+    log(f"[hybrid] {lanes} lanes x {ticks} ticks: hybrid == device parser "
+        "(YUV planes, flags and pts of every tick)")
 
 
 def predict_seq_kernels(x_p, x_i_pics, wpl: int, chain, rand_frames,
@@ -1328,7 +1606,7 @@ def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
             faults = 0 if (parser, dispatch) == ("device", "chunk") else 1
             runs = []
             for m in (None, mesh):
-                fleet = SS.build_fleet(url, lanes, 2, device=dev,
+                fleet = build_native_fleet(url, lanes, 2, device=dev,
                                        parser=parser, mesh=m)
                 rs = record_results(fleet, method)
                 sync_all()
@@ -1359,7 +1637,7 @@ def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
     # (the fault lands on tick 2)
     for parser, name in (("pallas", "K3P_predict"),
                          ("device", "K1S_slice_scan_seq")):
-        fleet = SS.build_fleet(url, lanes, 2, device=dev, parser=parser,
+        fleet = build_native_fleet(url, lanes, 2, device=dev, parser=parser,
                                mesh=mesh)
         seen = {}
         t0 = time.perf_counter()
@@ -1380,7 +1658,7 @@ def mesh_phase(dev, url: str, lanes: int, smi: str, ticks: int = 8,
     tap = (lanes // 2 + 1,)
     runs = []
     for m in (None, mesh):
-        fleet = SS.build_fleet(url, lanes, 2, stage="full", device=dev,
+        fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev,
                                mesh=m)
         rs = record_results(fleet)
         sync_all()
@@ -1519,6 +1797,8 @@ def main() -> int:
     from espflix_tpu_torch.ops.intwrap import wrap32
     from espflix_tpu_torch.runtime import chain as CH
     from espflix_tpu_torch.runtime import session as SE
+    from espflix_tpu_torch.streaming import native_feed as NF
+    from espflix_tpu_torch.tools import oracle as ORC
     from espflix_tpu_torch.runtime.workload import (bench_chunk,
                                                     bench_pictures)
 
@@ -1536,9 +1816,17 @@ def main() -> int:
     # the sessions' TS demuxer (native/ts_demux.cpp) builds at its first
     # use; build it here so that the timed serving phase does not
     t0 = time.perf_counter()
-    demux = "ready" if SE.native_demux_available() else \
-        "unavailable: numpy walker"
-    log(f"[build] native TS demuxer {demux} in "
+    if not (SE.native_demux_available() and NF.available()):
+        raise AssertionError("the native library (native/) did not build: "
+                             "no native TS demuxer or session feed")
+    log(f"[build] native TS demuxer and session feed ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # the hybrid parser's tokenizer (oracle/*.cpp with the port's
+    # vlc_luts.h, built into build/oracle-<hash>/)
+    t0 = time.perf_counter()
+    if not ORC.available():
+        raise AssertionError("the tokenizer library did not build")
+    log(f"[build] tokenizer {ORC.library_path()} in "
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- workload --------------------------------------------------------
@@ -1806,15 +2094,21 @@ def main() -> int:
 
     # ---- 5, 6. serving: one service behind the local HTTP server -------
     serve_lanes = min(256, args.lanes)
-    with http_service() as url:
+    with http_service() as (url, root):
         # A: faults, snapshot/restore
         serve_counts = serve_phase_a(dev, url, serve_lanes, 16, smi)
         # B: kernel path == plain path at A's lanes
         serve_phase_b(dev, url, serve_lanes)
         log(f"[time] phases 5-6 done at {time.perf_counter() - t_start:.1f} s")
-        # 7. decode-only serving, then kernel path == plain path
+        # 5p. the host worker pool: pooled == in-process, then 4x lanes
+        pooled_phase(dev, url, "file://" + root, serve_lanes, smi,
+                     big_lanes=4 * serve_lanes)
+        log(f"[time] phase 5p done at {time.perf_counter() - t_start:.1f} s")
+        # 7. decode-only serving, then kernel path == plain path, then
+        # the hybrid parser against the device parser
         decode_counts = decode_serving(dev, url, serve_lanes, smi)
         decode_parity(dev, url, serve_lanes)
+        hybrid_phase(dev, url, serve_lanes, smi)
         log(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
         # 8. the mesh
         mesh_counts = mesh_phase(dev, url, serve_lanes, smi)

@@ -1,8 +1,7 @@
 """Batched MPEG-1 video decode: host segmentation + the dense phase.
 
-Host side (numpy, copied from espflix_tpu.models.mpeg1 and pinned equal
-to it by tests/test_torch_host.py): start-code scan, ES segmentation
-into PictureData records, and batch assembly.
+Host side (numpy, models/mpeg1_host.py, re-exported here): start-code
+scan, ES segmentation into PictureData records, and batch assembly.
 
 Device side: ``dense_compose`` turns the scanner's dense buffers into
 new frames -- dequant+IDCT (ops/idct.py, K2) and one fused prediction +
@@ -13,214 +12,25 @@ torch ops, with the 'space' split's band prediction.
 ``decode_picture_batch_sliced`` is the decode-only fleet's per-tick
 decode on the slice scan (K1 or K1F) and one of the fused two;
 ``decode_picture_batch`` the device parser's: the sequential scan (K1S)
-and ``dense_compose_flat``.  Frame state is double-buffered [N, 2, H, W]
+and ``dense_compose_flat``; ``decode_picture_batch_hybrid`` the hybrid
+parser's: the native tokenizer (tools/oracle.py) on the host and
+``dense_compose_flat``.  Frame state is double-buffered [N, 2, H, W]
 planes plus a per-lane parity, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-
 import numpy as np
 import torch
 
-from espflix_tpu_torch.core import vlc_tables as V
-from espflix_tpu_torch.core.bitio import BitReader
+from espflix_tpu_torch.models.mpeg1_host import (  # noqa: F401
+    PictureData, SequenceInfo, find_start_codes, make_picture_batch,
+    parse_es)
 from espflix_tpu_torch.ops import idct as idct_ops
 from espflix_tpu_torch.ops import mocomp as mocomp_ops
 from espflix_tpu_torch.ops import scan_dense as SD
 from espflix_tpu_torch.ops import vlc_scan as VS
 from espflix_tpu_torch.ops.vlc_scan import MB_INTRA
-
-
-# ---------------------------------------------------------------------------
-# Host-side ES segmentation
-# ---------------------------------------------------------------------------
-
-@dataclass
-class SequenceInfo:
-    width: int
-    height: int
-    intra_q: np.ndarray
-    non_intra_q: np.ndarray
-
-    @property
-    def mb_width(self):
-        return (self.width + 15) >> 4
-
-    @property
-    def mb_height(self):
-        return (self.height + 15) >> 4
-
-
-@dataclass
-class PictureData:
-    """One picture's payload, device-ready."""
-    pic_type: int            # 1=I, 2=P (others are presented-but-skipped)
-    full_pel: int
-    r_size: int
-    seq: SequenceInfo
-    payload: bytes = b""     # slice region (start codes included)
-    slice_offsets: list = field(default_factory=list)  # bit offsets
-    slice_rows: list = field(default_factory=list)
-    pts: int = -1
-
-
-def find_start_codes(data: bytes):
-    """All (byte_pos, code) of 00 00 01 xx prefixes, numpy-fast."""
-    a = np.frombuffer(data, np.uint8)
-    if len(a) < 4:
-        return []
-    hits = np.where((a[:-3] == 0) & (a[1:-2] == 0) & (a[2:-1] == 1))[0]
-    return [(int(p), int(a[p + 3])) for p in hits]
-
-
-def parse_es(data: bytes, pts_of=None) -> tuple[SequenceInfo, list]:
-    """Segment an MPEG-1 video ES into PictureData records.
-
-    Returns (sequence_info, pictures).  Non-I/P pictures produce records
-    with no slices (lane presents/flips with unchanged content upstream).
-    """
-    codes = find_start_codes(data)
-    seq: SequenceInfo | None = None
-    pics: list[PictureData] = []
-    cur: PictureData | None = None
-    cur_start = None  # byte pos of first slice start code
-
-    def close(end_byte):
-        nonlocal cur, cur_start
-        if cur is not None:
-            if cur_start is not None:
-                base = cur_start
-                cur.payload = data[base:end_byte]
-                cur.slice_offsets = [
-                    (off - base) * 8 + 32 for off in cur.slice_offsets]
-            cur = None
-            cur_start = None
-
-    npic = 0
-    for pos, code in codes:
-        if code == 0xB3:  # sequence header
-            close(pos)
-            r = BitReader(data[pos + 4:pos + 4 + 140])
-            w, h = r.get(12), r.get(12)
-            r.get(4 + 4 + 18 + 12)
-            if r.get(1):
-                iq = np.array([r.get(8) for _ in range(64)], np.int32)
-            else:
-                iq = V.DEFAULT_INTRA_Q.copy()
-            if r.get(1):
-                nq = np.array([r.get(8) for _ in range(64)], np.int32)
-            else:
-                nq = V.DEFAULT_NON_INTRA_Q.copy()
-            seq = SequenceInfo(w, h, iq, nq)
-        elif code == 0x00:  # picture
-            close(pos)
-            assert seq is not None, "picture before sequence header"
-            r = BitReader(data[pos + 4:pos + 4 + 8])
-            r.get(10)
-            ptype = r.get(3)
-            full_pel = r_size = 0
-            if ptype == 2:
-                r.get(16)
-                full_pel = r.get(1)
-                r_size = r.get(3) - 1
-            pts = pts_of(npic) if pts_of else npic
-            npic += 1
-            cur = PictureData(ptype, full_pel, r_size, seq, pts=pts)
-            pics.append(cur)
-        elif 0x01 <= code <= 0xAF:  # slice
-            if cur is not None and cur.pic_type in (1, 2):
-                if cur_start is None:
-                    cur_start = pos
-                cur.slice_offsets.append(pos)
-                cur.slice_rows.append(code - 1)
-        elif code in (0xB7,):  # sequence end
-            close(pos)
-        # GOP (0xB8), user data, extensions: no action needed
-    close(len(data))
-    return seq, pics
-
-
-# ---------------------------------------------------------------------------
-# Batch assembly
-# ---------------------------------------------------------------------------
-
-def make_picture_batch(pictures: list, words_per_lane: int | None = None,
-                       max_slices: int | None = None,
-                       geometry: tuple | None = None):
-    """Pack one PictureData per lane into host arrays.
-
-    pictures may contain None entries (starved lane: no picture, lane
-    keeps its frame and does not flip).  An ALL-None tick is legal when
-    `geometry` (mb_width, mb_height) is given -- every lane masks out.
-    """
-    real = [p for p in pictures if p is not None]
-    if real:
-        seq = real[0].seq
-        mbw_g, mbh = seq.mb_width, seq.mb_height
-    else:
-        assert geometry is not None and words_per_lane is not None, \
-            "empty batch needs explicit geometry + words_per_lane"
-        mbw_g, mbh = geometry
-    S = max_slices or max(
-        max((len(p.slice_offsets) for p in real), default=1), 1)
-    if words_per_lane is None:
-        words_per_lane = max(
-            (len(p.payload) + 3) // 4 + 4 for p in real)
-
-    N = len(pictures)
-    words = np.zeros((N, words_per_lane), np.uint32)
-    n_words = np.zeros(N, np.int32)
-    slice_starts = np.zeros((N, S), np.int32)
-    slice_rows = np.zeros((N, S), np.int32)
-    n_slices = np.zeros(N, np.int32)
-    pic_type = np.ones(N, np.int32)
-    full_pel = np.zeros(N, np.int32)
-    r_size = np.zeros(N, np.int32)
-    intra_q = np.tile(V.DEFAULT_INTRA_Q, (N, 1)).astype(np.int32)
-    non_intra_q = np.tile(V.DEFAULT_NON_INTRA_Q, (N, 1)).astype(np.int32)
-    active = np.zeros(N, bool)
-
-    # raw payload bytes land directly in the words buffer, then ONE
-    # in-place byteswap over the used prefix gives big-endian words
-    u8 = words.view(np.uint8).reshape(N, words_per_lane * 4)
-    EOS = BitReader.EOS  # 00 00 01 B7 x2
-    maxw = 0
-    for i, p in enumerate(pictures):
-        if p is None:
-            continue
-        pl = p.payload
-        n = len(pl)
-        pad = (-n) % 4
-        nw = (n + pad) // 4 + 4     # payload + 2x EOS pad (8B pattern)
-        assert nw <= words_per_lane, (nw, words_per_lane)
-        u8[i, :n] = np.frombuffer(pl, np.uint8)
-        u8[i, n:n + pad + 16] = np.frombuffer(
-            EOS[:pad] + EOS * 2, np.uint8)
-        n_words[i] = nw
-        maxw = max(maxw, nw)
-        k = len(p.slice_offsets)
-        assert k <= S
-        slice_starts[i, :k] = p.slice_offsets
-        slice_rows[i, :k] = p.slice_rows
-        n_slices[i] = k
-        pic_type[i] = p.pic_type
-        full_pel[i] = p.full_pel
-        r_size[i] = max(p.r_size, 0)
-        intra_q[i] = p.seq.intra_q
-        non_intra_q[i] = p.seq.non_intra_q
-        active[i] = True
-    if maxw:
-        words[:, :maxw].byteswap(inplace=True)
-
-    return dict(
-        words=words, slice_starts=slice_starts, slice_rows=slice_rows,
-        n_slices=n_slices, pic_type=pic_type, full_pel=full_pel,
-        r_size=r_size, intra_q=intra_q, non_intra_q=non_intra_q,
-        active=active, n_words=n_words,
-        mb_width=mbw_g, mb_height=mbh,
-    )
 
 
 def init_frame_state(n_lanes: int, width: int, height: int,
@@ -475,4 +285,136 @@ def decode_picture_batch_sliced(batch: dict, frames, *, mb_width: int,
         err = err | torch.from_numpy(sl["overflow"]).to(dev)
     info = dict(error=err, ok=lane["active"] & ~err,
                 iters=iters.expand(n))
+    return frames, presented, info
+
+
+# ---------------------------------------------------------------------------
+# The hybrid parser: the native tokenizer on the host, the dense phase on
+# the device (espflix_tpu.models.mpeg1, mpeg1.py:811-968)
+# ---------------------------------------------------------------------------
+
+def tokenize_batch_native(pictures: list, mb_width: int, mb_height: int):
+    """Entropy-decode one picture per lane with the native tokenizer
+    (oracle/mpeg1_oracle.cpp mpeg1_tokenize_picture; tools/oracle.py).
+
+    Returns numpy (coeffs int16[N, MB*384], recs int32[N, MB],
+    nfinal int32[N, MB*6], active bool[N], errors bool[N])."""
+    from espflix_tpu_torch.tools import oracle
+
+    L = oracle.lib()
+    N = len(pictures)
+    mb_count = mb_width * mb_height
+    coeffs = np.zeros((N, mb_count * 384), np.int16)
+    recs = np.zeros((N, mb_count), np.int32)
+    nfinal = np.zeros((N, mb_count * 6), np.uint8)
+    active = np.zeros(N, bool)
+    errors = np.zeros(N, bool)
+    for i, p in enumerate(pictures):
+        if p is None or not p.slice_offsets:
+            continue
+        active[i] = True
+        offs = np.asarray(p.slice_offsets, np.int64)
+        rows = np.asarray(p.slice_rows, np.int32)
+        rc = L.mpeg1_tokenize_picture(
+            p.payload, len(p.payload), offs.ctypes.data, rows.ctypes.data,
+            len(offs), mb_width, mb_height, p.pic_type, p.full_pel,
+            max(p.r_size, 0), coeffs[i].ctypes.data, recs[i].ctypes.data,
+            nfinal[i].ctypes.data)
+        errors[i] = rc != 0
+    return coeffs, recs, nfinal.astype(np.int32), active, errors
+
+
+DEFAULT_MAX_EMIT = 16384  # covers >5x the 1.5Mb/s I-frame symbol budget
+
+
+def tokenize_batch_compact(pictures: list, mb_width: int, mb_height: int,
+                           max_emit: int = DEFAULT_MAX_EMIT):
+    """Compact native tokenize: coefficient emissions as packed
+    (pos << 12 | level & 0xFFF) int32 words -- ~4x less host->device
+    transfer than the dense buffer.  Returns numpy (emit int32[N,
+    max_emit], n_emit int32[N], recs, nfinal, active, errors)."""
+    from espflix_tpu_torch.tools import oracle
+
+    L = oracle.lib()
+    N = len(pictures)
+    mb_count = mb_width * mb_height
+    emit = np.zeros((N, max_emit), np.int32)
+    n_emit = np.zeros(N, np.int32)
+    recs = np.zeros((N, mb_count), np.int32)
+    nfinal = np.zeros((N, mb_count * 6), np.uint8)
+    active = np.zeros(N, bool)
+    errors = np.zeros(N, bool)
+    for i, p in enumerate(pictures):
+        if p is None or not p.slice_offsets:
+            continue
+        active[i] = True
+        offs = np.asarray(p.slice_offsets, np.int64)
+        rows = np.asarray(p.slice_rows, np.int32)
+        rc = L.mpeg1_tokenize_picture_compact(
+            p.payload, len(p.payload), offs.ctypes.data, rows.ctypes.data,
+            len(offs), mb_width, mb_height, p.pic_type, p.full_pel,
+            max(p.r_size, 0), emit[i].ctypes.data, max_emit,
+            recs[i].ctypes.data, nfinal[i].ctypes.data)
+        if rc < 0:
+            errors[i] = True
+        else:
+            n_emit[i] = rc
+    return emit, n_emit, recs, nfinal.astype(np.int32), active, errors
+
+
+def unpack_emissions(emit, n_emit, mb_count: int):
+    """Packed emissions -> the lane-minor int16[N, MB*384] coefficient
+    buffer (contiguous) with one scatter on emit's device.  Entries past
+    a lane's n_emit land in a trash slot past the buffer; a well-formed
+    stream writes no real slot twice."""
+    N, E = emit.shape
+    C = mb_count * 384
+    dev = emit.device
+    pos = (emit >> 12) & 0x1FFFF
+    val = emit & 0xFFF
+    val = torch.where(val >= 0x800, val - 0x1000, val)
+    k = torch.arange(E, dtype=torch.int32, device=dev)[None, :]
+    lane = torch.arange(N, dtype=torch.int64, device=dev)[:, None] * C
+    flat = torch.where(k < n_emit[:, None], lane + pos, N * C)
+    buf = torch.zeros(N * C + 1, dtype=torch.int16, device=dev)
+    buf.scatter_(0, flat.reshape(-1), val.to(torch.int16).reshape(-1))
+    return buf[:N * C].view(N, C)
+
+
+def decode_picture_batch_hybrid(pictures: list, intra_q, non_intra_q,
+                                frames, *, mb_width: int, mb_height: int,
+                                compact: bool = True,
+                                tables: dict | None = None):
+    """The hybrid decode step: the native tokenizer on the host feeds
+    the lane-minor dense phase (dense_compose_flat: K2F, K3F) on frames'
+    device.  The tokenizer's buffers are the lane-minor layout the
+    device parser's scan fills, so the dense phase is the one
+    decode_picture_impl runs.  compact=True ships packed emissions and
+    scatters them on the device (unpack_emissions); False ships the
+    dense coefficient buffer.  intra_q / non_intra_q: int32[N, 64]
+    (numpy).  Frames are updated in place.  Returns (frames, presented
+    y/u/v, info) with info error / ok bool[N] and iters int32[N] (0)."""
+    dev = frames["y"].device
+    if tables is None:
+        tables = decode_tables(dev)
+    if compact:
+        emit, n_emit, recs, nfinal, active, errors = \
+            tokenize_batch_compact(pictures, mb_width, mb_height)
+        x = xs_to_torch(dict(emit=emit, n_emit=n_emit), dev)
+        coeffs = unpack_emissions(x["emit"], x["n_emit"],
+                                  mb_width * mb_height)
+    else:
+        coeffs, recs, nfinal, active, errors = tokenize_batch_native(
+            pictures, mb_width, mb_height)
+        coeffs = torch.from_numpy(coeffs).to(dev)
+    x = xs_to_torch(dict(recs=recs, nfinal=nfinal, intra_q=intra_q,
+                         non_intra_q=non_intra_q, active=active,
+                         errors=errors), dev)
+    frames, presented = dense_compose_flat(
+        coeffs, x["recs"], x["nfinal"], x["intra_q"], x["non_intra_q"],
+        x["active"], frames, mb_width=mb_width, mb_height=mb_height,
+        scale_dct=tables["scale_dct"])
+    info = dict(error=x["errors"], ok=x["active"] & ~x["errors"],
+                iters=torch.zeros(len(pictures), dtype=torch.int32,
+                                  device=dev))
     return frames, presented, info

@@ -1,10 +1,10 @@
 """Emission log -> lane-major dense decode buffers.
 
 The scanner (ops/vlc_scan.py) emits at most one (flat index, value)
-pair per scan row per step.  This module holds the host-side
-scan-row -> (lane, MB row) permutation (``row_perm``, copied from
-espflix_tpu.ops.scan_dense), the mesh's per-shard packing
-(``pack_slice_rows_sharded``) and ``densify_log``: the exact semantics of
+pair per scan row per step.  This module re-exports the host-side
+scan-row -> (lane, MB row) permutation (``row_perm``) and the mesh's
+per-shard packing (``pack_slice_rows_sharded``) of ops/host_pack.py,
+and holds ``densify_log``: the exact semantics of
 the JAX package's one-hot densify (scan_dense._decode_slots,
 log_to_dense_rows and assemble_dense_T, scan_dense.py:139-286) written
 as plain scatters.  The CUDA scan (K1) stores into the same buffers
@@ -27,91 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from espflix_tpu_torch.ops.host_pack import (  # noqa: F401
+    pack_slice_rows_sharded, row_perm)
 from espflix_tpu_torch.ops.intwrap import wrap16, wrap32
-
-
-def row_perm(lane_of_row: np.ndarray, rows: np.ndarray,
-             alive: np.ndarray, n_lanes: int, mb_height: int):
-    """Host-side: (lane, mb_row) -> scan-row index permutation.
-
-    Returns (perm int32[n_lanes*mb_height], dup bool[n_lanes]): perm
-    maps each lane's MB row to the scan row that decodes it, or to
-    NS when no scan row covers it.  dup flags lanes where two alive scan
-    rows claim the same MB row (outside the supported profile; the lane
-    errors).
-    """
-    NS = len(lane_of_row)
-    perm = np.full(n_lanes * mb_height, NS, np.int32)
-    dup = np.zeros(n_lanes, bool)
-    r = np.asarray(rows)
-    l = np.asarray(lane_of_row)
-    a = np.asarray(alive).astype(bool)
-    ok = a & (r >= 0) & (r < mb_height)
-    slots = l[ok].astype(np.int64) * mb_height + r[ok]
-    idxs = np.nonzero(ok)[0].astype(np.int32)
-    # first claim wins; any further claim on a slot flags its lane
-    uniq, first, counts = np.unique(slots, return_index=True,
-                                    return_counts=True)
-    perm[uniq] = idxs[first]
-    if (counts > 1).any():
-        dup[(uniq[counts > 1] // mb_height).astype(np.int64)] = True
-    return perm, dup
-
-
-def pack_slice_rows_sharded(batch: dict, n_shards: int, mb_height: int,
-                            device_windows: bool = False):
-    """Host-side packing for the mesh's slice-scan decoders: the port of
-    espflix_tpu.ops.scan_dense.pack_slice_rows_sharded (scan_dense.py:
-    76-136).
-
-    Splits the lane axis into n_shards contiguous groups, span-sorts
-    each group's slice rows on its own (every shard's rows are
-    self-contained: local lane_of_row and row permutation) and
-    concatenates along axis 0.  device_windows=True ships per-lane words
-    ('lane_words', shard-local 'row_base', one 'win' for all shards).
-
-    Returns (sl dict of the concatenated row arrays plus 'perm',
-    'overflow' bool[N] and 'ns_local' rows per shard (+ 'win'), dup
-    bool[N])."""
-    from espflix_tpu_torch.ops import vlc_scan as VS
-    N = len(batch["active"])
-    assert N % n_shards == 0
-    ln = N // n_shards
-    parts = []
-    perms = []
-    dups = []
-    keys = (("lane_words", "row_base") if device_windows
-            else ("words",)) + (
-        "start_bits", "rows", "alive", "pic_type",
-        "full_pel", "r_size", "lane_of_row")
-    for s in range(n_shards):
-        sub = {}
-        for k, v in batch.items():
-            if isinstance(v, np.ndarray) and v.ndim >= 1 and \
-                    len(v) == N:
-                sub[k] = v[s * ln:(s + 1) * ln]
-            else:
-                sub[k] = v
-        sl = VS.pack_slice_rows(sub, sort_rows=True,
-                                device_windows=device_windows)
-        perm, dup = row_perm(sl["lane_of_row"], sl["rows"],
-                             sl["alive"], ln, mb_height)
-        parts.append(sl)
-        perms.append(perm)
-        dups.append(dup)
-    wk = "lane_words" if device_windows else "words"
-    Wp = max(p[wk].shape[1] for p in parts)
-    for p in parts:
-        w = p[wk]
-        if w.shape[1] < Wp:
-            p[wk] = np.pad(w, ((0, 0), (0, Wp - w.shape[1])))
-    out = {k: np.concatenate([p[k] for p in parts]) for k in keys}
-    out["perm"] = np.concatenate(perms)
-    out["overflow"] = np.concatenate([p["overflow"] for p in parts])
-    if device_windows:
-        out["win"] = max(p["win"] for p in parts)
-    out["ns_local"] = parts[0]["start_bits"].shape[0]
-    return out, np.concatenate(dups)
 
 
 def selected_rows(rows, lane_of_row, perm, mb_height: int):

@@ -1,8 +1,8 @@
 """MPEG-1 slice scan: slice-row packing, the slice FSM, kernel K1.
 
 Each scan row is ONE slice of one lane's picture, its words rebased to
-the slice start (``pack_slice_rows``, copied from
-espflix_tpu.ops.vlc_scan_pallas and pinned equal by the host tests).
+the slice start (``pack_slice_rows``, ops/host_pack.py, re-exported
+here).
 The FSM is ``make_scan_step`` of espflix_tpu.ops.vlc_scan (vlc_scan.py:
 279-660): one syntax element per row per step out of a 32-bit window.
 
@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from espflix_tpu_torch.core import vlc_tables as V
+from espflix_tpu_torch.ops.host_pack import pack_slice_rows  # noqa: F401
 from espflix_tpu_torch.ops.intwrap import wrap16, wrap32
 
 # FSM states
@@ -233,98 +234,8 @@ ZZ_NP = V.ZIG_ZAG.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------
-# host-side slice-row packing and device-side row windows
+# device-side row windows (the host-side packing is ops/host_pack.py)
 # ---------------------------------------------------------------------------
-
-def pack_slice_rows(batch: dict, words_window: int | None = None,
-                    sort_rows: bool = False,
-                    device_windows: bool = False):
-    """Host-side: expand a make_picture_batch dict into per-SLICE scan
-    rows with words rebased to each slice's word offset.
-
-    Returns dict(words [NS, Wp] uint32, start_bits/rows/alive [NS],
-    pic_type/full_pel/r_size [NS]) with NS = N * S, plus out_groups=S.
-    Rows whose slice span exceeds words_window are marked dead and the
-    lane flagged.  sort_rows=True orders rows by descending slice span
-    (the long-budget bucket takes the first rows); lane_of_row [NS]
-    routes each row to its lane.  device_windows=True ships per-lane
-    words + per-row bases instead of the [NS, Wp] windows
-    (gather_scan_rows builds them on the device)."""
-    words = np.asarray(batch["words"])
-    starts = np.asarray(batch["slice_starts"])
-    rows = np.asarray(batch["slice_rows"])
-    n_slices = np.asarray(batch["n_slices"])
-    n_words = np.asarray(batch.get(
-        "n_words", np.full(len(words), words.shape[1], np.int32)))
-    N, W = words.shape
-    S = starts.shape[1]
-    NS = N * S
-
-    # per (lane, slice): base word, end bit, span
-    sidx = np.arange(S)[None, :]
-    live = sidx < n_slices[:, None]                       # [N, S]
-    base = (starts >> 5) * live                           # [N, S]
-    nxt = np.concatenate([starts[:, 1:],
-                          np.zeros((N, 1), np.int32)], axis=1)
-    last = sidx == (n_slices[:, None] - 1)
-    end_bit = np.where(last, n_words[:, None] * 32, nxt)
-    span = np.where(live, -(-(end_bit - base * 32) // 32) + 2, 0)
-    span = np.minimum(span, W - base)
-
-    if words_window is None:
-        # auto-size to the longest slice span, bucketed to multiples of
-        # 128 words so callers see few distinct shapes
-        words_window = min(-(-max(int(span.max()), 1) // 128) * 128, W)
-    Wp = min(words_window, W)
-
-    overflow = (span > Wp).any(axis=1)
-    ok = live & ~overflow[:, None]                        # [N, S]
-
-    base_c = np.clip(base, 0, W - Wp)
-    start_bits = np.where(ok, starts - (base_c << 5), 0) \
-        .astype(np.int32).reshape(NS)
-    d = dict(start_bits=start_bits,
-             rows=np.where(ok, rows, 0).astype(np.int32).reshape(NS),
-             alive=ok.astype(np.int32).reshape(NS),
-             pic_type=np.repeat(np.asarray(batch["pic_type"]), S),
-             full_pel=np.repeat(np.asarray(batch["full_pel"]), S),
-             r_size=np.repeat(np.asarray(batch["r_size"]), S),
-             out_groups=S, overflow=overflow,
-             lane_of_row=np.repeat(np.arange(N, dtype=np.int32), S))
-    d["span"] = (span.reshape(NS) * d["alive"]).astype(np.int32)
-    lane_r = d["lane_of_row"]
-    base_r = base_c.astype(np.intp).reshape(NS)
-    if sort_rows:
-        order = np.argsort(-d["span"], kind="stable")
-        for k in ("start_bits", "rows", "alive", "pic_type",
-                  "full_pel", "r_size", "lane_of_row", "span"):
-            d[k] = np.ascontiguousarray(d[k][order])
-        lane_r = d["lane_of_row"]
-        base_r = base_r[order]
-
-    if device_windows:
-        # Wm covers every live row's span (+2 margin words past
-        # end_bit); reads past Wm are don't-care words the FSM never
-        # consumes (its own EOS pad stops it)
-        Wm = min(W, -(-max(int(n_words.max()) + 2, Wp) // 128) * 128)
-        lw = np.ascontiguousarray(words[:, :Wm])
-        if np.shares_memory(lw, words):
-            lw = lw.copy()
-        d["lane_words"] = lw
-        d["row_base"] = base_r.astype(np.int32)
-        d["win"] = Wp + (-Wp) % 8
-        return d
-
-    # one contiguous row copy per (lane, slice) via a sliding view;
-    # windows near the payload end clamp left (span <= Wp was checked)
-    from numpy.lib.stride_tricks import sliding_window_view
-    view = sliding_window_view(words, Wp, axis=1)        # [N, W-Wp+1, Wp]
-    out = view[lane_r, base_r]
-    if Wp % 8:
-        out = np.pad(out, ((0, 0), (0, 8 - Wp % 8)))
-    d["words"] = out
-    return d
-
 
 def gather_scan_rows(lane_words, base, lane_of_row, win: int):
     """Device-side scan-row windowing: the [NS, win] per-slice word

@@ -2,8 +2,9 @@
 
 Copied from espflix_tpu.runtime.session (session.py:28-299), which
 imports the JAX package's models.mpeg1; here the pictures are the
-port's models/mpeg1.PictureData.  tests/test_torch_serve.py pins the
-copy to the original.
+port's models/mpeg1.PictureData (defined in the torch-free
+models/mpeg1_host.py, so a host worker that runs sessions never imports
+torch).  tests/test_torch_serve.py pins the copy to the original.
 
 The host-side analogue of the reference's buffer pump + pull-model
 demux (the reference src/espflix.cpp:723-737, player.cpp:459-493):
@@ -16,6 +17,7 @@ the reference's 4-buffer pool).
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from dataclasses import dataclass, field
 
@@ -25,7 +27,7 @@ from espflix_tpu_torch.core.bitio import BitReader
 from espflix_tpu_torch.core import vlc_tables as V
 from espflix_tpu_torch.streaming import native as NT
 from espflix_tpu_torch.streaming.ts import TS_PACKET
-from espflix_tpu_torch.models.mpeg1 import PictureData, SequenceInfo
+from espflix_tpu_torch.models.mpeg1_host import PictureData, SequenceInfo
 
 
 @dataclass
@@ -296,9 +298,15 @@ class StreamFeed:
 
 
 def make_stream_feed():
-    """The session feed: the Python StreamFeed.  The JAX package's
-    production feed, the native C++-state NativeStreamFeed
-    (streaming/native_feed.py), imports the JAX package's models.mpeg1
-    and is not ported yet (ROADMAP.md); its output is bit-identical to
-    StreamFeed's (the JAX package's tests compare the two)."""
+    """Production feed: the native (C++-state) session feed when the
+    library is built (streaming/native_feed.NativeStreamFeed), else the
+    Python StreamFeed.  ESPFLIX_NATIVE_FEED=0 forces the Python path
+    (tests compare both for bit-identity)."""
+    if os.environ.get("ESPFLIX_NATIVE_FEED", "1") != "0":
+        try:
+            from espflix_tpu_torch.streaming.native_feed import \
+                NativeStreamFeed
+            return NativeStreamFeed()
+        except Exception:
+            pass
     return StreamFeed()

@@ -4,6 +4,7 @@ commits on one card.
     python3 espflix_tpu_torch/tools/kernel_ab.py [--tree CHECKOUT] [--label X]
                                                  [--only K3P_A,SBC,...]
     python3 espflix_tpu_torch/tools/kernel_ab.py --serve 256 [--tree ...]
+                                                 [--stage full]
 
 imports espflix_tpu_torch from CHECKOUT (default: the checkout that holds
 this file), builds its kernels, and times, at chip_smoke.py's phase-3
@@ -45,6 +46,9 @@ decode phase runs it: a service of 2 titles x 4 GOPs behind the local HTTP
 Range server, one warm-up run of 4 ticks, then --ticks ticks pipelined and
 --ticks chunked (K = 4) with two injected faults each, and reports each
 dispatch's wall ms a tick, its Fleet timers and the untimed host rest.
+With --stage full it times full-stage serving as chip_smoke.py's serving
+A runs it (Fleet.run_chunk_full in chunks of 4, two injected faults)
+instead, and names the session feed the lanes ran on.
 
 Run it for the two checkouts in the order A, B, B, A in one session on
 the card.  Needs a CUDA card.
@@ -148,10 +152,11 @@ def ptxas_report(tree: str) -> dict:
     return out
 
 
-def serve(dev, lanes: int, ticks: int) -> dict:
-    """Decode-only serving of the imported checkout at `lanes` lanes:
-    wall, Fleet timers and untimed host ms a tick for the pipelined and
-    the chunked dispatch."""
+def serve(dev, lanes: int, ticks: int, stage: str = "decode") -> dict:
+    """Serving of the imported checkout at `lanes` lanes: wall, Fleet
+    timers and untimed host ms a tick for the pipelined and the chunked
+    dispatch of the decode-only fleet, or (stage "full") for
+    run_chunk_full in chunks of 4."""
     import torch
     from espflix_tpu_torch import build
     from espflix_tpu_torch.tools import serve_scenario as SS
@@ -164,10 +169,14 @@ def serve(dev, lanes: int, ticks: int) -> dict:
         SS.generate_service(root, ["title00", "title01"], seed=0, n_gops=4)
         url, shutdown = SS.start_http_service(root)
         try:
-            SS.run_scenario(SS.build_fleet(url, lanes, 2, device=dev), 4,
-                            seed=0, faults=0, dispatch="pipelined")
-            for dispatch in ("pipelined", "chunk"):
-                fleet = SS.build_fleet(url, lanes, 2, device=dev)
+            dispatches = ("full",) if stage == "full" else ("pipelined",
+                                                            "chunk")
+            SS.run_scenario(SS.build_fleet(url, lanes, 2, device=dev,
+                                           stage=stage), 4,
+                            seed=0, faults=0, dispatch=dispatches[0])
+            for dispatch in dispatches:
+                fleet = SS.build_fleet(url, lanes, 2, device=dev,
+                                       stage=stage)
                 stats, _ = SS.run_scenario(fleet, ticks, seed=0, faults=2,
                                            dispatch=dispatch)
                 torch.cuda.synchronize()
@@ -177,7 +186,8 @@ def serve(dev, lanes: int, ticks: int) -> dict:
                 out[dispatch] = dict(
                     wall_ms=wall, timers_ms=timers,
                     untimed_ms=wall - sum(timers.values()),
-                    frames=stats.frames, errors=stats.errors)
+                    frames=stats.frames, errors=stats.errors,
+                    feed=type(fleet.sessions[0].feed).__name__)
         finally:
             shutdown()
     finally:
@@ -202,6 +212,9 @@ def main() -> int:
     ap.add_argument("--serve", type=int, default=0, metavar="LANES",
                     help="time decode-only serving at LANES lanes instead")
     ap.add_argument("--ticks", type=int, default=16)
+    ap.add_argument("--stage", choices=("decode", "full"), default="decode",
+                    help="with --serve: the decode-only fleet or the full "
+                    "chain (run_chunk_full)")
     ap.add_argument("--only", default="",
                     help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
@@ -222,7 +235,9 @@ def main() -> int:
     if args.serve:
         print(json.dumps({"label": args.label or tree, "card": card(),
                           "lanes": args.serve, "ticks": args.ticks,
-                          "serve": serve(dev, args.serve, args.ticks)}),
+                          "stage": args.stage,
+                          "serve": serve(dev, args.serve, args.ticks,
+                                         args.stage)}),
               flush=True)
         return 0
 

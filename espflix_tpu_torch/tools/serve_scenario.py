@@ -15,16 +15,21 @@ fleet snapshot at half-time restored into a second fleet -- on
     sequential scan, the JAX tool's default for this stage; both
     present the same frames on clean streams);
   * --stage full: every chunk of K = 4 ticks through
-    Fleet.run_chunk_full (decode, composite fields, SBC and PDM).
+    Fleet.run_chunk_full (decode, composite fields, SBC and PDM);
+  * --stage full --workers W: the sessions on W host worker processes
+    (runtime/hostpool.HostPool), every chunk through
+    Fleet.run_chunk_full_pooled (run_pooled: the JAX tool's
+    serve_scenario.py:325-420).
 
     python3 -m espflix_tpu_torch.tools.serve_scenario --stage decode \\
         --lanes 256 --ticks 16 [--dispatch chunk]
     python3 -m espflix_tpu_torch.tools.serve_scenario --stage full \\
-        --lanes 256 --ticks 16
+        --lanes 256 --ticks 16 [--workers 8]
     ... --device cpu --transport file     # on the CPU, no HTTP server
 
 Prints one JSON line with the JAX tool's keys (serve_scenario.py:496-
-515).  --workers and --egress are not ported yet (NotImplementedError).
+515; run_pooled's at :397-410).  --egress is not ported yet
+(NotImplementedError).
 """
 
 from __future__ import annotations
@@ -341,6 +346,75 @@ def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
     return stats, snap
 
 
+def run_pooled(args, url: str):
+    """--workers mode (serve_scenario.py:325-420): the sessions sharded
+    across host worker processes feeding the full chain on --device
+    (Fleet.run_chunk_full_pooled), in chunks of K = 4 ticks with control
+    churn between chunks -- finished lanes re-navigated, one +30 s skip
+    a chunk.  Prints and returns the JSON line."""
+    from espflix_tpu_torch.runtime.hostpool import HostPool
+
+    rng = np.random.default_rng(args.seed)
+    fleet = Fleet(args.lanes, words_per_lane=8192, parser="pallas",
+                  output=True, device=args.device)
+    with HostPool(args.lanes, args.workers, 8192, fleet.mb_w,
+                  fleet.mb_h) as pool:
+        for i in range(args.lanes):
+            if not pool.attach(i, url):
+                raise RuntimeError("service bootstrap failed")
+            pool.call(i, "nav", i % args.titles)
+            pool.call(i, "play_pause")
+        K = 4
+        stats = ScenarioStats(lanes=args.lanes)
+        stats.frames_per_lane = np.zeros(args.lanes, np.int64)
+        t0 = time.time()
+        t = 0
+        while t < args.ticks:
+            for lane in range(args.lanes):
+                if pool.state(lane) == "DONE":
+                    pool.call(lane, "menu")
+                    pool.call(lane, "nav", int(rng.integers(0, args.titles)))
+                    pool.call(lane, "play_pause")
+                    stats.actions["lane_restart"] = \
+                        stats.actions.get("lane_restart", 0) + 1
+            if t:
+                lane = int(rng.integers(0, args.lanes))
+                pool.call(lane, "skip", 30)
+                stats.actions["skip_fwd"] = \
+                    stats.actions.get("skip_fwd", 0) + 1
+            k = min(K, args.ticks - t)
+            for r in fleet.run_chunk_full_pooled(pool, k, tap_lanes=(0,)):
+                stats.frames += int(r.video_lanes.sum())
+                stats.frames_per_lane += r.video_lanes.astype(np.int64)
+                stats.audio_lanes += int(r.audio_lanes.sum())
+                stats.errors += int(r.errors.sum())
+                stats.full_ticks += 1
+                if r.tap_fields is not None:
+                    stats.tap_field_bytes += int(np.asarray(
+                        r.tap_fields).size)
+            t += k
+        stats.wall_s = time.time() - t0
+    stats.ticks = args.ticks
+    out = {
+        "lanes": args.lanes, "ticks": stats.ticks,
+        "stage": "full", "dispatch": "full-pooled",
+        "workers": args.workers,
+        "full_ticks": stats.full_ticks,
+        "tap_field_bytes": stats.tap_field_bytes,
+        "min_lane_frames": int(stats.frames_per_lane.min()),
+        "frames": stats.frames,
+        "audio_lane_ticks": stats.audio_lanes,
+        "errors": stats.errors,
+        "actions": stats.actions,
+        "wall_s": round(stats.wall_s, 2),
+        "wall_per_tick_ms": round(
+            stats.wall_s / max(stats.ticks, 1) * 1000, 1),
+        "frames_per_s": round(stats.frames / max(stats.wall_s, 1e-9), 1),
+    }
+    print(json.dumps(out))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--lanes", type=int, default=64)
@@ -368,12 +442,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device of the fleet (cuda or cpu)")
     ap.add_argument("--workers", type=int, default=0,
-                    help="host worker processes (not ported yet)")
+                    help="shard the session control plane across N host "
+                         "worker processes (runtime/hostpool.py; "
+                         "requires --stage full)")
     ap.add_argument("--egress", type=int, default=0,
                     help="paced egress of N tapped lanes (not ported yet)")
     args = ap.parse_args(argv)
-    if args.workers:
-        raise NotImplementedError("--workers (HostPool) is not ported yet")
+    if args.workers and args.stage != "full":
+        raise ValueError("--workers requires --stage full")
     if args.egress:
         raise NotImplementedError("--egress is not ported yet")
     dispatch = args.dispatch or (
@@ -395,6 +471,8 @@ def main(argv=None):
 
     run_kw = dict(decode_audio=not args.no_audio, dispatch=dispatch)
     try:
+        if args.workers:
+            return run_pooled(args, url)
         fleet = build_fleet(url, args.lanes, args.titles, stage=args.stage,
                             device=args.device)
         stats, snap = run_scenario(fleet, args.ticks, seed=args.seed,

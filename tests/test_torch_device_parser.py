@@ -247,6 +247,24 @@ def test_device_fleet_carries_match(device_fleets):
 
 
 def test_hybrid_parser_is_not_ported():
+    """The hybrid parser is ported now: Fleet(parser="hybrid") decodes a
+    tick of one lane, or, without the tokenizer library, falls back to
+    the device parser as the JAX Fleet does (scheduler.py:160-163).
+    tests/test_torch_hybrid.py holds it equal to the JAX fleet."""
+    from types import SimpleNamespace
+
+    from espflix_tpu_torch.runtime.player import State
     from espflix_tpu_torch.runtime.scheduler import Fleet
-    with pytest.raises(NotImplementedError):
-        Fleet(1, parser="hybrid", device="cpu")
+    from espflix_tpu_torch.tools import oracle
+    fleet = Fleet(1, width=96, height=64, parser="hybrid", device="cpu")
+    assert fleet.parser == ("hybrid" if oracle.available() else "device")
+    pic = _pictures(4, n_pictures=1)[0]
+    presented = []
+    fleet.attach(0, SimpleNamespace(
+        state=State.PAUSED, feed=None, clock=SimpleNamespace(
+            tick=lambda: None), next_picture=lambda: pic,
+        on_presented=presented.append))
+    r = fleet.tick(decode_audio=False)
+    assert r.video_lanes.tolist() == [True] and not r.errors.any()
+    assert presented == [pic.pts] and r.y.shape == (1, 64, 96)
+    assert r.y.any()

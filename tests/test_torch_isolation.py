@@ -37,7 +37,8 @@ PORT_MODULES = sorted(
 COPIES = ["core/vlc_tables.py", "core/sbc_tables.py", "core/bitio.py",
           "audio/sbc.py", "runtime/events.py", "runtime/checkpoint.py",
           "streaming/index.py", "streaming/streamer.py",
-          "streaming/native.py", "streaming/ts.py", "video/clock.py",
+          "streaming/native.py", "streaming/ts.py",
+          "streaming/fetch_pool.py", "video/clock.py",
           "video/render.py", "video/tables.py", "tools/indexer.py",
           "tools/ts_mux.py", "tools/mpeg1_encode.py",
           "tools/sbc_encode.py", "tools/content.py"]

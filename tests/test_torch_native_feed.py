@@ -1,0 +1,296 @@
+"""The port's native session feed (streaming/native_feed.py) and the
+fleet's batched and packed pops, against the port's Python StreamFeed
+and the JAX package's native feed.
+
+  * NativeStreamFeed: the same PictureData (payload, slices, seq, pts)
+    and SBC frames as the port's StreamFeed and the JAX NativeStreamFeed
+    on bulk, packet-sized and ragged chunks, and on a sequence header
+    split mid-header (as tests/test_split_seq_header.py does for JAX);
+  * FeedPool: lanes recycle under churn and start clean;
+  * pop_many: Fleet._gather_pictures' batched pops equal per-lane pops
+    and the JAX fleet's batched gather;
+  * pop_many_packed: Fleet._gather_batch_packed's batch dict equals
+    make_picture_batch of the classic gather and the JAX packed dict,
+    tick for tick, and logs the classic gather's events in its order,
+    also when lanes are parked or resynced.
+
+Exact equality throughout (bytes and integers).  The port's feeds and
+the JAX package's share native/libespflix_native.so, each with its own
+FeedPool.
+"""
+
+import gc
+
+import numpy as np
+import pytest
+import torch
+
+from espflix_tpu.runtime import session as JSES
+from espflix_tpu.streaming import native_feed as JNF
+from espflix_tpu.tools import serve_scenario as JSS
+from espflix_tpu_torch.models import mpeg1 as TM
+from espflix_tpu_torch.runtime import scheduler as TSCH
+from espflix_tpu_torch.runtime import session as TSES
+from espflix_tpu_torch.streaming import native_feed as TNF
+from espflix_tpu_torch.tools import serve_scenario as TSS
+
+torch.set_num_threads(1)
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def native_lib():
+    """The native library, built at first use (not at collection)."""
+    if not TNF.available():
+        pytest.skip("native lib not built")
+
+
+@pytest.fixture(scope="module")
+def service(tmp_path_factory):
+    root = tmp_path_factory.mktemp("svc_nf")
+    TSS.generate_service(str(root), ["a", "b"], seed=9, n_gops=2, gop=6)
+    return root
+
+
+def _probe(data: bytes):
+    return TSCH.Fleet._sbc_probe(data)
+
+
+def _drain(feed, ts: bytes, chunks, audio_every=3, max_audio=8):
+    """Feed `ts` in the given chunk sizes, popping pictures eagerly and
+    audio every few chunks; returns (pictures, audio arrays)."""
+    pics, audio = [], []
+    pos = 0
+    for k, c in enumerate(chunks, 1):
+        feed.feed(ts[pos:pos + c])
+        pos += c
+        while (p := feed.pop_picture()) is not None:
+            pics.append(p)
+        if k % audio_every == 0 and \
+                feed.audio.discover(_probe) and feed.audio.frame_size:
+            fa = feed.audio.pop_frames_array(max_audio)
+            if fa is not None:
+                audio.append(fa.copy())
+    assert pos == len(ts)
+    feed.eos()
+    while (p := feed.pop_picture()) is not None:
+        pics.append(p)
+    if feed.audio.discover(_probe) and feed.audio.frame_size:
+        fa = feed.audio.pop_frames_array(4096)
+        if fa is not None:
+            audio.append(fa.copy())
+    return ([(p.pic_type, p.full_pel, p.r_size, p.pts, p.payload,
+              list(p.slice_offsets), list(p.slice_rows), p.seq.width,
+              p.seq.height, p.seq.intra_q.tolist(),
+              p.seq.non_intra_q.tolist()) for p in pics],
+            np.concatenate([a.reshape(-1) for a in audio])
+            if audio else np.zeros(0, np.uint8))
+
+
+def _chunks(n, mode):
+    if mode == "bulk":
+        return [n]
+    if mode == "packets":
+        c = [188 * 4] * (n // (188 * 4))
+        return c + ([n - sum(c)] if n - sum(c) else [])
+    rng = np.random.default_rng(3)     # ragged: splits everything
+    out = []
+    while n > 0:
+        out.append(min(int(rng.integers(1, 601)), n))
+        n -= out[-1]
+    return out
+
+
+@pytest.mark.parametrize("mode", ["bulk", "packets", "ragged"])
+def test_native_feed_matches(service, mode):
+    ts = (service / "media" / "a" / "video.ts").read_bytes()
+    chunks = _chunks(len(ts), mode)
+    got = _drain(TNF.NativeStreamFeed(), ts, chunks)
+    py = _drain(TSES.StreamFeed(), ts, chunks)
+    jx = _drain(JNF.NativeStreamFeed(), ts, chunks)
+    assert len(got[0]) == 12 and len(got[1]) > 0
+    assert got[0] == py[0] == jx[0]
+    assert np.array_equal(got[1], py[1]) and np.array_equal(got[1], jx[1])
+
+
+@pytest.mark.parametrize("mk", [TSES.StreamFeed, TNF.NativeStreamFeed])
+def test_seq_header_split_mid_header(service, mk):
+    """The first sequence header's code starts at TS offset 18; a cut a
+    few bytes into it leaves geometry and load flags for the next feed
+    (tests/test_split_seq_header.py)."""
+    ts = (service / "media" / "a" / "video.ts").read_bytes()
+    ref = mk()
+    ref.feed(ts)
+    q = ref.pop_picture()
+    jref = JSES.StreamFeed()
+    jref.feed(ts)
+    jq = jref.pop_picture()
+    assert (q.seq.width, q.seq.height, q.payload) == \
+        (jq.seq.width, jq.seq.height, jq.payload)
+    for cut in (23, 24, 26, 29):
+        feed = mk()
+        feed.feed(ts[:cut])
+        assert feed.pop_picture() is None
+        feed.feed(ts[cut:])
+        p = feed.pop_picture()
+        assert (p.seq.width, p.seq.height) == (q.seq.width, q.seq.height)
+        assert np.array_equal(p.seq.intra_q, q.seq.intra_q)
+        assert np.array_equal(p.seq.non_intra_q, q.seq.non_intra_q)
+        assert p.payload == q.payload
+
+
+def test_pool_recycles_lanes_under_churn():
+    """A session makes a fresh feed per play(): the port's pool lanes
+    recycle (no leak), a recycled lane starts clean, and the JAX
+    package's pool is a different one."""
+    pool = TNF.get_pool()
+    assert pool is not JNF.get_pool() and pool.handle != JNF.get_pool().handle
+    gc.collect()            # feeds of earlier tests' sessions, in cycles
+    free0 = len(pool._free)
+    for _ in range(3):
+        feeds = [TNF.NativeStreamFeed() for _ in range(128)]
+        for fd in feeds:
+            fd.feed(b"\x47" + b"\x00" * 187)
+        assert len(pool._free) == free0 - 128
+        del feeds, fd
+        gc.collect()
+        assert len(pool._free) == free0
+    f = TNF.NativeStreamFeed()
+    assert f.pop_picture() is None and not f.sync_lost
+    assert f.audio.size() == 0
+    del f
+    gc.collect()
+    assert len(pool._free) == free0
+
+
+def test_player_session_uses_native(service, monkeypatch):
+    from espflix_tpu_torch.runtime.player import PlayerSession
+    monkeypatch.delenv("ESPFLIX_NATIVE_FEED", raising=False)
+    s = PlayerSession("file://" + str(service))
+    assert s.init_service()
+    s.nav(0)
+    s.play_pause()
+    assert isinstance(s.feed, TNF.NativeStreamFeed)
+    assert sum(s.next_picture() is not None for _ in range(8)) == 8
+    monkeypatch.setenv("ESPFLIX_NATIVE_FEED", "0")
+    assert isinstance(TSES.make_stream_feed(), TSES.StreamFeed)
+
+
+def _port_fleet(service, lanes=8, **kw):
+    return TSS.build_fleet("file://" + str(service), lanes, 2,
+                           device="cpu", **kw)
+
+
+def _events(fleet):
+    return [(e.ev.name, e.lane, e.value)
+            for e in fleet.events.dump(10 ** 6)]
+
+
+def _gather_run(fleet, ticks=20):
+    seqs = []
+    for _ in range(ticks):
+        pics, pts, pre = fleet._gather_pictures()
+        seqs.append(([(p.pic_type, p.pts, p.payload) if p else None
+                      for p in pics], pts.tolist(), pre.tolist(),
+                     [s.state.name for s in fleet.sessions]))
+    return seqs
+
+
+def test_batched_pop_matches_per_lane(service, monkeypatch):
+    """_gather_pictures through pop_many (one call a pump round) gives
+    the per-lane path's pictures, states and events, and the JAX
+    fleet's batched gather's."""
+    runs = []
+    for batched in ("1", "0"):
+        monkeypatch.setenv("ESPFLIX_BATCHED_POP", batched)
+        fleet = _port_fleet(service)
+        assert fleet._batched_pop == (batched == "1")
+        runs.append((_gather_run(fleet), _events(fleet)))
+    monkeypatch.setenv("ESPFLIX_BATCHED_POP", "1")
+    jf = JSS.build_fleet("file://" + str(service), 8, 2,
+                         words_per_lane=8192)
+    assert runs[0] == runs[1]
+    assert runs[0][0] == _gather_run(jf)
+    # pictures came, then every title ran out (the EOS path)
+    assert sum(p is not None for t in runs[0][0] for p in t[0]) == 8 * 12
+    assert set(runs[0][0][-1][3]) == {"DONE"}
+
+
+def _packed_run(fleet, M, ticks=20):
+    out = []
+    for _ in range(ticks):
+        g = fleet._gather_batch_packed()
+        if g is not None:
+            b, pts, pre = g
+        else:
+            pics, pts, pre = fleet._gather_pictures()
+            b = M.make_picture_batch(
+                pics, words_per_lane=fleet.words_per_lane,
+                max_slices=fleet.mb_h, geometry=(fleet.mb_w, fleet.mb_h))
+        b = {k: (v.copy() if isinstance(v, np.ndarray) else v)
+             for k, v in b.items()}
+        out.append((b, np.asarray(pts).copy(), pre.copy(),
+                    [s.state.name for s in fleet.sessions]))
+    return out
+
+
+def _assert_batches_equal(A, B):
+    saw_active = False
+    for t, ((ba, pa, ea, sa), (bb, pb, eb, sb)) in enumerate(zip(A, B)):
+        assert sa == sb and np.array_equal(pa, pb), t
+        assert np.array_equal(ea, eb), t
+        for k in ("active", "pic_type", "full_pel", "r_size", "n_slices",
+                  "n_words"):
+            assert np.array_equal(ba[k], bb[k]), (t, k)
+        act = ba["active"]
+        saw_active |= bool(act.any())
+        for k in ("words", "slice_starts", "slice_rows", "intra_q",
+                  "non_intra_q"):
+            assert np.array_equal(ba[k][act], bb[k][act]), (t, k)
+    assert saw_active and len(A) == len(B)
+
+
+def test_packed_gather_matches_classic_and_jax(service, monkeypatch):
+    """pop_many_packed's batch dict == make_picture_batch of the classic
+    gather == the JAX PackedBatch dict, tick for tick (active rows
+    including their zero tails), with the same pts, flags, states."""
+    from espflix_tpu.models import mpeg1 as JM
+    runs = []
+    for packed in ("1", "0"):
+        monkeypatch.setenv("ESPFLIX_PACKED_POP", packed)
+        fleet = _port_fleet(service, stage="full")
+        runs.append((_packed_run(fleet, TM), fleet._packed is not None,
+                     _events(fleet)))
+    monkeypatch.setenv("ESPFLIX_PACKED_POP", "1")
+    jf = JSS.build_fleet("file://" + str(service), 8, 2,
+                         words_per_lane=8192, stage="full")
+    jrun = _packed_run(jf, JM)
+    (got, used, ev), (classic, unused, ev_c) = runs
+    assert used and not unused and jf._packed is not None
+    _assert_batches_equal(got, classic)
+    _assert_batches_equal(got, jrun)
+    assert ev == ev_c
+
+
+@pytest.mark.parametrize("case", ["oversize", "geometry"])
+def test_packed_policies_log_the_classic_events(service, monkeypatch, case):
+    """Lanes whose pictures the fleet rejects -- more words than a lane
+    holds (LANE_OVERSIZE, then LANE_RESYNC) or another geometry
+    (LANE_GEOMETRY, parked) -- log the classic gather's events in its
+    order through the packed path, with the same batches."""
+    kw = dict(words_per_lane=2048) if case == "oversize" else {}
+    runs = []
+    for packed in ("1", "0"):
+        monkeypatch.setenv("ESPFLIX_PACKED_POP", packed)
+        fleet = _port_fleet(service, stage="full", **kw)
+        if case == "geometry":
+            fleet.height = 176      # every 352x192 picture mismatches
+        runs.append((_packed_run(fleet, TM, ticks=8), _events(fleet)))
+    (got, ev), (classic, ev_c) = runs
+    name = "LANE_OVERSIZE" if case == "oversize" else "LANE_GEOMETRY"
+    assert sum(e[0] == name for e in ev) >= 2
+    assert ev == ev_c
+    for (ba, pa, ea, sa), (bb, pb, eb, sb) in zip(got, classic):
+        assert sa == sb and np.array_equal(pa, pb) and np.array_equal(ea, eb)
+        for k in ("active", "pic_type", "n_slices", "n_words"):
+            assert np.array_equal(ba[k], bb[k]), k

@@ -1,4 +1,5 @@
-"""The port's serving CLI on the CPU: --stage decode for each dispatch.
+"""The port's serving CLI on the CPU: --stage decode for each dispatch,
+and --stage full --workers (the HostPool path).
 
 python3 -m espflix_tpu_torch.tools.serve_scenario --stage decode
 --device cpu --transport file on two lanes, 6 ticks of one-GOP titles:
@@ -47,3 +48,24 @@ def test_cli_defaults_to_the_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises((RuntimeError, AssertionError)):
         TSS.build_fleet("file:///nonexistent", 1, 1)
+
+
+# run_pooled's output line (serve_scenario.py:397-410)
+POOLED_KEYS = {"lanes", "ticks", "stage", "dispatch", "workers",
+               "full_ticks", "tap_field_bytes", "min_lane_frames",
+               "frames", "audio_lane_ticks", "errors", "actions",
+               "wall_s", "wall_per_tick_ms", "frames_per_s"}
+
+
+def test_cli_workers_on_cpu(capsys):
+    """--stage full --workers 2: two lanes on two host worker processes
+    feed the full chain on the CPU (Fleet.run_chunk_full_pooled); every
+    lane decodes and the tapped lane's fields come back."""
+    out = TSS.main(["--stage", "full", "--workers", "2", "--device", "cpu",
+                    "--transport", "file", "--lanes", "2", "--ticks", "2",
+                    "--titles", "2", "--gops", "1"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == out and set(out) == POOLED_KEYS
+    assert out["dispatch"] == "full-pooled" and out["workers"] == 2
+    assert out["full_ticks"] == 2 and out["min_lane_frames"] >= 1
+    assert out["errors"] == 0 and out["tap_field_bytes"] > 0
