@@ -60,6 +60,16 @@ line is printed):
    of the lanes mid-slide): no lane errors, every kernel's launch
    counter rose during each run, and every out and carry equal to the
    same ticks run through the plain forms on the card;
+4o. the per-field output path: runtime/output.OutputStage.synthesize
+   on phase 4's presented planes (1,024 lanes), 6 fields through the
+   kernels and 6 through the plain forms in lockstep from the same
+   state, NTSC and PAL -- OSD on a third of the lanes (every blend
+   class, a fade that runs out, progress at the bar's ends), a quarter
+   of the lanes sliding from the last planes (start_slide(prev=None))
+   after field 1, half from each side -- then OutputStage.modulate, 3
+   calls of 256 samples and one of 333, beeps and starved lanes: every
+   field, PDM word and carry equal, K4 and K5 launched; ms a field and
+   a call (CUDA events and host clock);
 5. serving A: serve_scenario's full stage over the local HTTP Range
    server (min(256, --lanes) lanes, 16 ticks in chunks of 4, 2 titles
    of 4 GOPs, two injected faults, a snapshot at tick 8 restored into a
@@ -83,6 +93,13 @@ line is printed):
    reports CUDA_VISIBLE_DEVICES="" and no torch import; the workers'
    start time and peak RSS, and what a worker importing torch would
    cost, are printed;
+5e. egress: serve_scenario's full stage with --egress 16
+   --egress-depth 16 at serving A's lanes over the same service, 16
+   ticks: every full tick pushed, consumed + dropped == pushed with no
+   drop, the delivered field bytes of the tap geometry, and the pump's
+   checksum equal to the taps' field_sum + pdm_sum (mod 2^31) of the
+   same run's TickResults; the line rate against 16 lanes x 14.32 MB/s
+   and the underruns are printed;
 7. decode-only serving: serve_scenario --stage decode over the same
    HTTP service at the same lanes, 16 ticks pipelined (tick_submit /
    tick_collect) and 16 chunked (run_chunk, K = 4), two injected faults
@@ -108,6 +125,13 @@ line is printed):
    to the unsharded band form through the plain forms on a P picture,
    with the share of its MBs whose rule-B taps cross an edge (K3P's
    byte path); K3P and K1S launched;
+8r. the geometry router: a one-lane 352x192 fleet playing a 352x240
+   title parks it (LANE_GEOMETRY), FleetRouter.route() re-homes it, and
+   the re-homed fleet decodes 6 ticks (K1F, K2F, K3F at mb_height 15)
+   with at least 3 frames, no error, and planes, pts and flags equal to
+   the same ticks through the plain forms; then python -m
+   espflix_tpu_torch.tools.play --field on the card for 8 frames into
+   a temporary directory: 8 y/u/v/field PGM files each;
 9. the total seconds, the card's name and power limit, one JSON line
    with the kernels' numbers (launches: serving A's for K1-K6, the
    decode-only serving's for K1F-K3F, the mesh phase's for K3P and
@@ -1141,6 +1165,344 @@ def torch_worker_cost() -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
+def output_setup(st, N: int):
+    """Per-lane OSD of phase 4o: a third of the lanes show it -- every
+    blend class (-1, a fade that runs out mid-run, 1..31, >= 32) and
+    progress from the bar's empty end to its full one."""
+    from espflix_tpu_torch.video.render import FFWD, PLAY
+    for lane in range(0, N, 3):
+        k = lane // 3
+        total = 90000 * 100
+        pts = [0, total, 90000 * (k % 100)][k % 3]
+        st.update_progress(lane, pts, total, FFWD if k % 2 else PLAY)
+        st.show_progress(lane, t=(-1, 3, 1 + k % 31, 32 + k % 200)[k % 4])
+
+
+def per_field_times(dev, yuv, pal: bool, sliders, reps: int) -> dict:
+    """ms of OutputStage.synthesize at the planes' lanes: a field with no
+    lane sliding (steady) and one with `sliders` re-armed at the slide's
+    first step before every call (scrolled), CUDA events and host clock;
+    and the parts alone on the same inputs: K4's pair, the scroll blit,
+    field 0's canvas, the state uploads; with the bytes bound of a field
+    (planes, OSD, state read once, the field written once)."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.ops import composite as CO
+    from espflix_tpu_torch.runtime import output as OUT
+
+    y, u, v = yuv
+    N = y.shape[0]
+    st = OUT.OutputStage(N, pal=pal, device=dev)
+    output_setup(st, N)
+    st.synthesize(y, u, v)                   # the slides' planes
+
+    def host_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    steady = lambda: st.synthesize(y, u, v)  # noqa: E731
+    r = dict(steady_ms=time_ms(steady, reps), host_steady_ms=host_ms(steady))
+    sl = np.asarray(sliders)
+    for j, lane in enumerate(sliders):
+        st.start_slide(lane, 2 if j % 2 else 3)
+    idx0, hs0 = st.animate_index[sl].copy(), st.hscroll[sl].copy()
+
+    def scrolled():
+        st.animate_index[sl], st.hscroll[sl] = idx0, hs0
+        return st.synthesize(y, u, v)
+    r.update(scrolled_ms=time_ms(scrolled, reps),
+             host_scrolled_ms=host_ms(scrolled))
+    field = scrolled()
+    tmpl, dither = st._k4_consts()
+    state = lambda: (  # noqa: E731
+        st._tensor((st.frame_counter & 1).astype(np.int32), torch.int32),
+        st._tensor(st.osd, torch.uint8), st._tensor(st.blend, torch.int32),
+        st._tensor(st.progress, torch.int32),
+        st._tensor(st.hscroll, torch.int32))
+    par, osd, blend, prog, hs = state()
+    k4 = lambda: CO.synthesize_field_pair_parts(  # noqa: E731
+        y, u, v, par, osd, blend, prog, pal=pal, tmpl=tmpl, dither=dither)
+    act, strip, _chk = k4()
+    r.update(part_k4_pair_ms=time_ms(k4, reps),
+             part_scroll_blit_ms=time_ms(lambda: CO.apply_hscroll(
+                 y, u, v, *st._slide_on_device(), hs), reps),
+             part_canvas_ms=time_ms(lambda: OUT._field0_canvas(
+                 act, strip, tmpl, pal), reps),
+             part_uploads_ms=time_ms(state, reps))
+    moved = (y.numel() + u.numel() + v.numel() + field.numel()
+             + st.osd.nbytes + 4 * 4 * N)
+    r["bound_ms"], r["bound_by"] = bound(moved)
+    return r
+
+
+def per_field_phase(dev, planes, smi: str, reps: int, fields: int = 6):
+    """Phase 4o: OutputStage.synthesize / modulate at the planes' lanes,
+    through the kernels and through the plain forms in lockstep from the
+    same state, NTSC and PAL: every field, PDM word and carry equal, K4
+    and K5 launched; then ms a field and a call.  Returns the entries'
+    extra numbers for the kernels line."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.ops import delta_sigma as DS
+    from espflix_tpu_torch.runtime.output import OutputStage
+
+    N = planes[0][0].shape[0]
+    lanes = torch.arange(N)
+    sliders = [int(i) for i in lanes[lanes % 4 == 1]]
+    out = {}
+    for pal in (False, True):
+        std = "PAL" if pal else "NTSC"
+        stages = [OutputStage(N, pal=pal, device=dev) for _ in range(2)]
+        for st in stages:
+            output_setup(st, N)
+        torch.cuda.synchronize()
+        reset_counts()
+        n_cmp = 0
+        for k in range(fields):
+            if k == 2:
+                # a quarter of the lanes slide from the last planes, half
+                # from each side: fields 2.. take the scrolled branch
+                for st in stages:
+                    for j, lane in enumerate(sliders):
+                        st.start_slide(lane, 2 if j % 2 else 3)
+            y, u, v = planes[k % len(planes)]
+            got = stages[0].synthesize(y, u, v)
+            with plain_forms():
+                ref = stages[1].synthesize(y, u, v)
+            require_equal(f"per-field {std} field {k}", [(got, ref)])
+            n_cmp += 1
+            for key in ("blend", "frame_counter", "hscroll",
+                        "animate_index"):
+                if not np.array_equal(getattr(stages[0], key),
+                                      getattr(stages[1], key)):
+                    raise AssertionError(f"per-field {std}: {key} differs")
+        counts = read_counts(f"per-field {std}", ("K4_composite_field_pair",))
+        if not (stages[0].hscroll != 0).any():
+            raise AssertionError("per-field: no lane slides")
+        faded = int(((stages[0].blend == 0)
+                     & (np.arange(N) % 3 == 0)).sum())
+        out[std] = dict(per_field_times(dev, planes[0], pal, sliders, reps),
+                        launches=counts["K4_composite_field_pair"])
+        log(f"[per-field {std}] {N} lanes x {fields} fields: kernel path "
+            f"== plain path ({n_cmp} fields of {tuple(got.shape)} uint8; "
+            f"{len(sliders)} lanes slid, {faded} OSD lanes faded out); "
+            f"K4 launches {counts}; a field, ms (CUDA events; host clock "
+            f"host_*; the parts alone part_*): {out[std]} | {smi}")
+    del got, ref
+
+    # modulate: 3 calls of 256 samples, one of an odd count; beeps on
+    # some lanes, starved lanes on others
+    g = torch.Generator(device="cpu").manual_seed(11)
+    stages = [OutputStage(N, device=dev) for _ in range(2)]
+    for st in stages:
+        for lane in range(0, N, 5):
+            st.beep(lane)
+    torch.cuda.synchronize()
+    reset_counts()
+    for k, T in enumerate((256, 256, 256, 333)):
+        pcm = torch.randint(-32768, 32768, (N, T), generator=g,
+                            dtype=torch.int32).to(torch.int16).to(dev)
+        starved = (torch.arange(N) % 7 == k).numpy()
+        got = stages[0].modulate(pcm, starved)
+        with plain_forms():
+            ref = stages[1].modulate(pcm, starved)
+        require_equal(f"modulate call {k} (T={T})",
+                      [(got, ref), (stages[0].pdm_state,
+                                    stages[1].pdm_state)])
+        if not np.array_equal(stages[0].beep_frames, stages[1].beep_frames):
+            raise AssertionError("modulate: beep_frames differ")
+    counts = read_counts("modulate", ("K5_pdm",))
+    st = stages[0]
+    pcm = pcm[:, :256].contiguous()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        st.modulate(pcm)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ev_ms = time_ms(lambda: st.modulate(pcm), reps)
+    k5_ms = time_ms(lambda: DS.modulate(pcm, st.pdm_state, n_samples=256),
+                    reps)
+    out["modulate"] = dict(ms=ev_ms, host_ms=host_ms, part_k5_ms=k5_ms,
+                           launches=counts["K5_pdm"])
+    log(f"[modulate] {N} lanes: 3 calls of 256 samples and one of 333, "
+        f"beeps on {len(range(0, N, 5))} lanes, starved lanes: kernel path "
+        f"== plain path (words, state, beep counters); K5 launches {counts}; "
+        f"a call of 256 samples {ev_ms:.3f} ms (CUDA events), "
+        f"{host_ms:.3f} ms (host clock), K5 alone {k5_ms:.3f} ms | {smi}")
+    return out
+
+
+def egress_phase(dev, url: str, lanes: int, smi: str, ticks: int = 16,
+                 tapped: int = 16, depth: int = 16, seed: int = 0):
+    """Phase 5e: serve_scenario --stage full --egress `tapped` at
+    `lanes` lanes over the HTTP service, `ticks` ticks, a ring of
+    `depth` ticks (no tick can drop): every full tick pushed and
+    delivered, the field bytes of the tap geometry, and the pump's
+    checksum the sum of the taps' field_sum + pdm_sum of the same run's
+    TickResults."""
+    import torch
+    from espflix_tpu_torch.runtime.egress import EgressPump
+    from espflix_tpu_torch.tools import serve_scenario as SS
+    from espflix_tpu_torch.video.tables import Geometry
+
+    fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev)
+    rs = record_results(fleet)
+    tap_lanes = tuple(range(min(tapped, lanes)))
+    pump = EgressPump(tick_interval=1.0 / 29.97, depth=depth)
+    torch.cuda.synchronize()
+    reset_counts()
+    pump.start()
+    try:
+        stats, _ = SS.run_scenario(fleet, ticks, seed=seed,
+                                   dispatch="full", tap_lanes=tap_lanes,
+                                   egress=pump)
+    finally:
+        est = pump.finish()
+    eg = SS.egress_summary(est, len(tap_lanes))
+    counts = read_counts("egress", CHAIN_KERNELS)
+    g = Geometry(fleet.pal)
+    per_tick = len(tap_lanes) * 2 * g.line_count * g.line_width
+    want = sum(int(r.field_sum[lane]) + int(r.pdm_sum[lane])
+               for r in rs for lane in tap_lanes) & 0x7FFFFFFF
+    tap_sums_match(rs, tap_lanes)
+    problems = []
+    if eg["pushed_ticks"] != stats.full_ticks or stats.full_ticks != ticks:
+        problems.append(f"pushed {eg['pushed_ticks']} of {stats.full_ticks}"
+                        f" full ticks ({ticks} run)")
+    if eg["consumed_ticks"] + eg["dropped_ticks"] != eg["pushed_ticks"] \
+            or eg["dropped_ticks"]:
+        problems.append("consumed + dropped != pushed, or a drop")
+    if eg["delivered_field_bytes"] != eg["consumed_ticks"] * per_tick:
+        problems.append(f"{eg['delivered_field_bytes']} field bytes, not "
+                        f"{eg['consumed_ticks']} x {per_tick}")
+    if eg["checksum"] != want:
+        problems.append(f"checksum {eg['checksum']} != taps' sums {want}")
+    if problems:
+        raise AssertionError("egress: " + "; ".join(problems))
+    target = len(tap_lanes) * 2 * g.line_count * g.line_width * 29.97 / 1e6
+    log(f"[egress] {lanes} lanes x {ticks} ticks over HTTP, {len(tap_lanes)} "
+        f"tapped, ring depth {depth}: {json.dumps(eg)}; line rate "
+        f"{eg['line_rate_MBps']} MB/s against {target:.1f} MB/s "
+        f"({len(tap_lanes)} lanes x {target / len(tap_lanes):.2f} MB/s), "
+        f"{eg['underrun_ticks']} underruns; serving "
+        f"{1000 * stats.wall_s / ticks:.1f} ms/tick wall; launches {counts} "
+        f"| {smi}")
+    return eg
+
+
+def router_phase(dev, smi: str, ticks: int = 6):
+    """A 352x192 fleet with one 352x240 title: the lane parks
+    (LANE_GEOMETRY), FleetRouter re-homes it, and the re-homed fleet
+    (mb_height 15) decodes `ticks` ticks through K1F, K2F and K3F with
+    the same planes, pts and flags as the same ticks through the plain
+    forms.  Returns the kernel run's launch counts."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch import build
+    from espflix_tpu_torch.runtime.events import Ev
+    from espflix_tpu_torch.runtime.player import PlayerSession
+    from espflix_tpu_torch.runtime.router import FleetRouter
+    from espflix_tpu_torch.runtime.scheduler import Fleet
+    from espflix_tpu_torch.tools.indexer import make_service
+
+    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as svc:
+        make_service(svc, ["tall"], seed=13, n_gops=2, gop=4, width=352,
+                     height=240)
+        runs = []
+        for plain in (False, True):
+            s = PlayerSession("file://" + svc)
+            if not s.init_service():
+                raise AssertionError("router: service unreachable")
+            s.nav(0)
+            s.play_pause()
+            fleet = Fleet(1, words_per_lane=8192, device=dev)
+            fleet.attach(0, s)
+            r = fleet.tick(decode_audio=False)
+            names = [e.ev for e in fleet.events.dump(10 ** 6)]
+            if not r.errors[0] or Ev.LANE_GEOMETRY not in names \
+                    or s.park_geometry != (352, 240):
+                raise AssertionError("router: the 352x240 lane did not park")
+            router = FleetRouter(fleet, lanes_per_fleet=1, fleet_kwargs=dict(
+                words_per_lane=8192, device=dev))
+            if router.route() != 1 or fleet.sessions[0] is not None:
+                raise AssertionError("router: route() did not move the lane")
+            tall = router.fleets[(352, 240)]
+            torch.cuda.synchronize()
+            reset_counts()
+            with plain_forms() if plain else contextlib.nullcontext():
+                rs = [tall.tick(decode_audio=False) for _ in range(ticks)]
+            torch.cuda.synchronize()
+            counts = {k: getattr(*c) for k, c in kernel_counters().items()}
+            runs.append((rs, counts, tall))
+    (rk, ck, tk), (rp, cp, _tp) = runs
+    if any(cp.values()):
+        raise AssertionError(f"router: the plain run launched kernels {cp}")
+    if min(ck[k] for k in FLAT_KERNELS) < 1:
+        raise AssertionError(f"router: K1F-K3F not all launched ({ck})")
+    frames = 0
+    for t, (a, b) in enumerate(zip(rk, rp)):
+        for key in ("video_lanes", "pts", "errors"):
+            if not np.array_equal(getattr(a, key), getattr(b, key)):
+                raise AssertionError(f"router tick {t}: {key} kernel != plain")
+        if a.errors[0]:
+            raise AssertionError(f"router tick {t}: lane error")
+        frames += int(a.video_lanes[0])
+        require_equal(f"router tick {t} planes",
+                      [(torch.from_numpy(a.y), torch.from_numpy(b.y)),
+                       (torch.from_numpy(a.u), torch.from_numpy(b.u)),
+                       (torch.from_numpy(a.v), torch.from_numpy(b.v))])
+    if frames < 3:
+        raise AssertionError(f"router: {frames} frames in {ticks} ticks")
+    flat = {k: ck[k] for k in FLAT_KERNELS}
+    log(f"[router] 352x240 lane parked, re-homed (mb {tk.mb_w}x{tk.mb_h}), "
+        f"{frames} frames in {ticks} ticks, kernel path == plain path "
+        f"(planes {tuple(rk[0].y.shape)}, pts, flags); launches {flat} | "
+        f"{smi}")
+    return flat
+
+
+def play_phase(smi: str, frames: int = 8):
+    """python -m espflix_tpu_torch.tools.play --field on the card for
+    `frames` frames into a temporary directory: y/u/v planes and a field
+    for each frame."""
+    import os
+    from pathlib import Path
+    from espflix_tpu_torch import build
+
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    build.BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_ROOT) as tmp:
+        svc, out = os.path.join(tmp, "svc"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        for argv in (["--make-service", svc],
+                     ["--root", "file://" + svc, "--frames", str(frames),
+                      "--field", "--out", out]):
+            r = subprocess.run([sys.executable, "-m",
+                                "espflix_tpu_torch.tools.play", *argv],
+                               capture_output=True, text=True, cwd=root,
+                               env=env, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"play {argv[0]}: {r.stderr[-1500:]}")
+        names = sorted(os.listdir(out))
+        want = sorted([f"frame{n:03d}_{p}.pgm" for n in range(frames)
+                       for p in "yuv"] + [f"field{n:03d}.pgm"
+                                          for n in range(frames)])
+        if names != want:
+            raise AssertionError(f"play: wrote {names[:6]}..., not "
+                                 f"{len(want)} y/u/v/field files")
+        size = os.path.getsize(os.path.join(out, "field000.pgm"))
+    log(f"[play] python -m espflix_tpu_torch.tools.play --field on the card: "
+        f"{frames} frames -> {len(names)} PGM files (a field {size} B) in "
+        f"{time.perf_counter() - t0:.1f} s ({r.stdout.strip()}) | {smi}")
+
+
 def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
                  big_lanes: int = 1024, ticks: int = 8,
                  big_ticks: int = 16) -> dict:
@@ -2051,6 +2413,10 @@ def main() -> int:
         wall = time.perf_counter() - t0
         chain_counts[label] = counts = read_counts(f"chain {label}",
                                                    CHAIN_KERNELS)
+        if label == "win=0":
+            # the presented planes of each tick, for phase 4o
+            presented = [tuple(outs[k][t] for k in "yuv")
+                         for t in range(outs["y"].shape[0])]
         if outs["err"].any():
             raise AssertionError(f"{label}: lane errors "
                                  f"{int(outs['err'].sum())}")
@@ -2092,6 +2458,16 @@ def main() -> int:
 
     log(f"[time] phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
+    # ---- 4o. the per-field output path ------------------------------------
+    per_field = per_field_phase(dev, presented, smi, args.reps)
+    del presented
+    for k in kernels:
+        if k["name"] == "K4_composite_field_pair":
+            k["per_field"] = {s: per_field[s] for s in ("NTSC", "PAL")}
+        elif k["name"] == "K5_pdm":
+            k["per_call"] = per_field["modulate"]
+    log(f"[time] phase 4o done at {time.perf_counter() - t_start:.1f} s")
+
     # ---- 5, 6. serving: one service behind the local HTTP server -------
     serve_lanes = min(256, args.lanes)
     with http_service() as (url, root):
@@ -2100,6 +2476,9 @@ def main() -> int:
         # B: kernel path == plain path at A's lanes
         serve_phase_b(dev, url, serve_lanes)
         log(f"[time] phases 5-6 done at {time.perf_counter() - t_start:.1f} s")
+        # 5e. paced egress of 16 tapped lanes
+        egress_phase(dev, url, serve_lanes, smi)
+        log(f"[time] phase 5e done at {time.perf_counter() - t_start:.1f} s")
         # 5p. the host worker pool: pooled == in-process, then 4x lanes
         pooled_phase(dev, url, "file://" + root, serve_lanes, smi,
                      big_lanes=4 * serve_lanes)
@@ -2112,6 +2491,12 @@ def main() -> int:
         log(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
         # 8. the mesh
         mesh_counts = mesh_phase(dev, url, serve_lanes, smi)
+    log(f"[time] phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    # 8r. the geometry router at 352x240, then the play tool
+    router_phase(dev, smi)
+    play_phase(smi)
+    log(f"[time] router and play done at "
+        f"{time.perf_counter() - t_start:.1f} s")
 
     for k in kernels:
         k["launches"] = serve_counts.get(

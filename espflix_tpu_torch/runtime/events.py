@@ -108,3 +108,29 @@ class Timers:
             for k, v in sorted(self.acc.items(), key=lambda kv: -kv[1])
         }
 
+
+
+def hbm_accounting(tree) -> dict[str, int]:
+    """Bytes per tensor leaf of a nested dict / list / tuple (the
+    `mem()` analogue, prof.cpp:105-111), keyed as the JAX package's
+    ``jax.tree_util.keystr`` path (``['frames']['y']``, ``[0]``), plus
+    ``__total__``: the torch form of espflix_tpu.runtime.events.
+    hbm_accounting.  Leaves without ``nbytes`` count nothing."""
+    out: dict[str, int] = {}
+    total = 0
+
+    def walk(node, key):
+        nonlocal total
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{key}[{k!r}]")
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                walk(x, f"{key}[{i}]")
+        elif hasattr(node, "nbytes"):
+            out[key] = int(node.nbytes)
+            total += int(node.nbytes)
+
+    walk(tree, "")
+    out["__total__"] = int(total)
+    return out

@@ -24,12 +24,17 @@ fleet snapshot at half-time restored into a second fleet -- on
     python3 -m espflix_tpu_torch.tools.serve_scenario --stage decode \\
         --lanes 256 --ticks 16 [--dispatch chunk]
     python3 -m espflix_tpu_torch.tools.serve_scenario --stage full \\
-        --lanes 256 --ticks 16 [--workers 8]
+        --lanes 256 --ticks 16 [--workers 8] [--egress 16 --egress-depth 16]
     ... --device cpu --transport file     # on the CPU, no HTTP server
 
+  * --stage full --egress K: the first K lanes are tapped and every
+    full tick's DAC fields and PDM words go through one paced
+    runtime/egress.EgressPump (one tick's signal per 1/29.97 s); the
+    summary gets its "egress" block (delivered bytes, underruns, drops,
+    line rate, the delivery checksum).
+
 Prints one JSON line with the JAX tool's keys (serve_scenario.py:496-
-515; run_pooled's at :397-410).  --egress is not ported yet
-(NotImplementedError).
+528; run_pooled's at :397-410).
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from espflix_tpu_torch.core.bitio import BitWriter
+from espflix_tpu_torch.runtime.egress import EgressPump
 from espflix_tpu_torch.runtime.events import Ev
 from espflix_tpu_torch.tools.indexer import make_service
 from espflix_tpu_torch.models import mpeg1 as M
@@ -205,7 +211,7 @@ def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
                  action_every: int = 4, faults: int = 2,
                  decode_audio: bool = True,
                  snapshot_at: int | None = None, churn: bool = True,
-                 dispatch: str = "pipelined", tap_lanes=(0,)):
+                 dispatch: str = "pipelined", tap_lanes=(0,), egress=None):
     """Drive the fleet through `ticks` ticks with scripted per-lane
     control actions and injected faults (serve_scenario.py:173-324).
 
@@ -213,8 +219,10 @@ def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
     the device; an action every `action_every` ticks), "chunk"
     (run_chunk) or "full" (run_chunk_full, tapping `tap_lanes`) in
     chunks of K = action_every ticks with actions, faults and snapshots
-    at chunk boundaries.  churn re-navigates any lane whose title
-    finished (State.DONE), so batch occupancy never decays.  Returns
+    at chunk boundaries.  egress: an EgressPump that every tick with
+    taps pushes its tap_fields and tap_pdm to.  churn re-navigates any
+    lane whose title finished (State.DONE), so batch occupancy never
+    decays.  Returns
     (stats, snapshot) where snapshot is the fleet snapshot taken at
     `snapshot_at` (or None)."""
     rng = np.random.default_rng(seed)
@@ -294,6 +302,10 @@ def run_scenario(fleet: Fleet, ticks: int, *, seed: int = 0,
             stats.full_ticks += 1
         if r.tap_fields is not None:
             stats.tap_field_bytes += int(np.asarray(r.tap_fields).size)
+            if egress is not None:
+                # the tapped lanes' DAC fields + PDM words to the paced
+                # line-rate consumer (runtime/egress.py)
+                egress.push(r.tap_fields, r.tap_pdm)
 
     t0 = time.time()
     if dispatch == "pipelined":
@@ -446,12 +458,16 @@ def main(argv=None):
                          "worker processes (runtime/hostpool.py; "
                          "requires --stage full)")
     ap.add_argument("--egress", type=int, default=0,
-                    help="paced egress of N tapped lanes (not ported yet)")
+                    help="tap N lanes and drain their full DAC fields + "
+                         "PDM through a paced line-rate consumer "
+                         "(runtime/egress.py; requires --stage full)")
+    ap.add_argument("--egress-depth", type=int, default=8,
+                    help="egress ring depth in ticks")
     args = ap.parse_args(argv)
     if args.workers and args.stage != "full":
         raise ValueError("--workers requires --stage full")
-    if args.egress:
-        raise NotImplementedError("--egress is not ported yet")
+    if args.egress and args.stage != "full":
+        raise ValueError("--egress requires --stage full")
     dispatch = args.dispatch or (
         "full" if args.stage == "full" else "pipelined")
 
@@ -475,8 +491,18 @@ def main(argv=None):
             return run_pooled(args, url)
         fleet = build_fleet(url, args.lanes, args.titles, stage=args.stage,
                             device=args.device)
+        pump = None
+        tap_lanes = (0,)
+        if args.egress:
+            tap_lanes = tuple(range(min(args.egress, args.lanes)))
+            pump = EgressPump(tick_interval=1.0 / 29.97,
+                              depth=args.egress_depth)
+            pump.start()
         stats, snap = run_scenario(fleet, args.ticks, seed=args.seed,
-                                   snapshot_at=args.ticks // 2, **run_kw)
+                                   snapshot_at=args.ticks // 2,
+                                   tap_lanes=tap_lanes, egress=pump,
+                                   **run_kw)
+        est = pump.finish() if pump is not None else None
         # snapshot/restore into a second fleet: every playing lane
         # resumes at its saved position
         restored = 0
@@ -513,8 +539,26 @@ def main(argv=None):
         "frames_per_s": round(stats.frames / max(stats.wall_s, 1e-9), 1),
         "rt_streams_per_chip": round(stats.streams_per_chip(), 1),
     }
+    if est is not None:
+        out["egress"] = egress_summary(est, len(tap_lanes))
     print(json.dumps(out))
     return out
+
+
+def egress_summary(est, tapped: int) -> dict:
+    """The summary's "egress" block (the JAX tool's keys) from an
+    EgressPump's final EgressStats."""
+    return {
+        "tapped_lanes": tapped,
+        "pushed_ticks": est.pushed_ticks,
+        "consumed_ticks": est.consumed_ticks,
+        "underrun_ticks": est.underrun_ticks,
+        "dropped_ticks": est.dropped_ticks,
+        "delivered_field_bytes": est.delivered_field_bytes,
+        "delivered_pdm_words": est.delivered_pdm_words,
+        "line_rate_MBps": round(est.line_rate_bytes_per_s() / 1e6, 2),
+        "checksum": est.checksum,
+    }
 
 
 if __name__ == "__main__":

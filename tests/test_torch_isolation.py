@@ -6,12 +6,15 @@
   * one subprocess imports every port module while a sys.meta_path
     finder refuses espflix_tpu and jax: each module imports;
   * the port's copies of the JAX package's jax-free modules (core/,
-    audio/sbc.py, runtime/{events,checkpoint}.py, streaming/, video/,
-    tools/) are pinned to their originals: the source, up to the
-    import lines and the docstring that names the original; tables as
-    arrays; the Ev members; and the encoder, muxer, indexer, SBC coder,
-    demuxer, index, clock and OSD renderer giving identical output for
-    a seed.
+    audio/sbc.py, runtime/{events,checkpoint,egress,router,input,ir,
+    prof}.py, streaming/, video/, tools/, utils/{concurrency,nanolog}.py,
+    assets.py, config.py) are pinned to their originals: the source, up
+    to the import lines, the docstring that names the original and
+    where a copy caches (_PORT_NOTES); tables as arrays; the Ev members
+    and hbm_accounting's torch form against the JAX one; and the
+    encoder, muxer, indexer, SBC coder, demuxer, index, clock, OSD
+    renderer, onboarding GUI, menu, trace viewer, log formatter and
+    config giving identical output for a seed.
 """
 
 import ast
@@ -41,7 +44,23 @@ COPIES = ["core/vlc_tables.py", "core/sbc_tables.py", "core/bitio.py",
           "streaming/fetch_pool.py", "video/clock.py",
           "video/render.py", "video/tables.py", "tools/indexer.py",
           "tools/ts_mux.py", "tools/mpeg1_encode.py",
-          "tools/sbc_encode.py", "tools/content.py"]
+          "tools/sbc_encode.py", "tools/content.py",
+          "runtime/egress.py", "runtime/router.py", "runtime/input.py",
+          "runtime/ir.py", "streaming/netmgr.py", "video/menu.py",
+          "video/gui.py", "assets.py", "config.py",
+          "utils/concurrency.py", "utils/nanolog.py", "runtime/prof.py",
+          "tools/tracecat.py", "tools/refdata.py", "core/refdec.py"]
+
+# what a copy may change besides its imports: where it caches (inside
+# the checkout, not under the home directory) and where it looks for
+# the reference sources (only where ESPFLIX_REF_SRC says)
+_PORT_NOTES = [
+    (r"\n(_CACHE|REF_SRC) = [^\n]*(\n    [^\n]*)*", ""),
+    (r" \(build/assets of this checkout\)", ""),
+    (r"caches the binary in\s+(~/\.cache/espflix_tpu|build/refdata of this"
+     r"\s+checkout)\.(\s+ESPFLIX_REF_SRC[^.]*\.)?", "caches the binary."),
+    (r"return bool\(REF_SRC\) and all\(", "return all("),
+]
 
 
 def _forbidden(name: str) -> bool:
@@ -111,6 +130,8 @@ def _normalized(text: str) -> str:
                   r"isolation\.py\npins the copy to the original\.\n", "",
                   text)
     text = re.sub(r"/[a-z]+/reference/", "", text)
+    for pat, sub in _PORT_NOTES:
+        text = re.sub(pat, sub, text)
     text = text.replace(", and adds HBM accounting for the device\narrays "
                         "(the `mem()` analogue, prof.cpp:105-111).", ".")
     text = text.replace("espflix_tpu_torch.", "espflix_tpu.")
@@ -160,7 +181,24 @@ def test_event_members_match():
     j, t = _pair("runtime/events.py")
     assert [(e.name, e.value) for e in j.Ev] == \
         [(e.name, e.value) for e in t.Ev]
-    assert not hasattr(t, "hbm_accounting")
+    # the torch form of hbm_accounting: the same keys and bytes as the
+    # JAX one on the same nested dict (tensors / jax arrays)
+    import jax.numpy as jnp
+    import torch
+    tree = {"frames": {"y": np.zeros((2, 4, 8), np.uint8),
+                       "parity": np.zeros(2, np.int32)},
+            "carry": [np.zeros((2, 3), np.int32), np.zeros(5, np.int16)],
+            "pair": (np.zeros(7, np.float32),), "none": None}
+
+    def conv(x, f):
+        if isinstance(x, dict):
+            return {k: conv(v, f) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(conv(v, f) for v in x)
+        return x if x is None else f(x)
+    got = t.hbm_accounting(conv(tree, torch.from_numpy))
+    want = j.hbm_accounting(conv(tree, jnp.asarray))
+    assert got == want and got["__total__"] == 64 + 8 + 24 + 10 + 28
     dumps = []
     for m in (j, t):
         log = m.EventLog(capacity=3)
@@ -264,10 +302,55 @@ def _behaviours():
         s.write("short", 7)
         return s.snapshot(), s.read("short"), s.read("missing")
 
+    def gui(pkg):
+        # the onboarding reducer over a link manager: scan, pick the
+        # secured link, type on the keyboard, join; every frame drawn
+        nm = mod(pkg, "streaming.netmgr")
+        G = mod(pkg, "video.gui")
+        joins = []
+        net = nm.NetworkManager(
+            lambda: [("alpha", -40, 1), ("beta", -70, nm.AUTH_OPEN)],
+            lambda name, secret: joins.append((name, secret)) or True)
+        net.scan()
+        net.tick()
+        g = G.Gui(net)
+        out = []
+        for k in (0, G.KEY_SELECT, G.KEY_RIGHT, G.KEY_DOWN, G.KEY_SELECT,
+                  G.KEY_UP, G.KEY_LEFT, G.KEY_SELECT, 0):
+            out.append((g.key(k), g.state, g.frame.copy()))
+        return out, joins, int(net.state())
+
+    def menu(pkg):
+        return mod(pkg, "video.menu").menu_frame(
+            [f"title {k}" for k in range(12)], 10)
+
+    def tracecat(pkg):
+        ev = mod(pkg, "runtime.events")
+        tc = mod(pkg, "tools.tracecat")
+        log = ev.EventLog()
+        for k in range(4):
+            log.log(ev.Ev.DECODE_BATCH if k % 2 else ev.Ev.LANE_ERROR, k, k)
+        docs = [dict(t=k * 0.5, ev=e.ev.name, lane=e.lane, value=e.value)
+                for k, e in enumerate(log.dump())]
+        return tc.format_events(log), tc.format_counts(log), \
+            tc.to_chrome(docs)
+
+    def nanolog(pkg):
+        f = mod(pkg, "utils.nanolog")._format
+        return [f(fmt, a) for fmt, a in (
+            ("x=%d y=%04d", (7, 9)), ("%x/%X %08X", (255, 255, 0xBEEF)),
+            ("[%s] %c 100%%", ("hi", 65)), ("neg %d", (-5,)))]
+
+    def config(pkg):
+        import dataclasses
+        c = mod(pkg, "config").Config()
+        return dataclasses.asdict(c), c.video.mb_width, c.video.mb_height
+
     return {"encoder": encoder, "sbc_coder": sbc_coder, "muxer": muxer,
             "indexer": indexer, "demux": demux, "index": index,
             "clock": clock, "renderer": renderer, "bitio": bitio,
-            "checkpoint": checkpoint}
+            "checkpoint": checkpoint, "gui": gui, "menu": menu,
+            "tracecat": tracecat, "nanolog": nanolog, "config": config}
 
 
 BEHAVIOURS = _behaviours()
