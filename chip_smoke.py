@@ -70,6 +70,25 @@ line is printed):
    calls of 256 samples and one of 333, beeps and starved lanes: every
    field, PDM word and carry equal, K4 and K5 launched; ms a field and
    a call (CUDA events and host clock);
+O. the validation path against the C oracle (tools/oracle.py), at the
+   chain's lanes and 352x192: models/mpeg1.decode_es_batched over the
+   lanes tiled from 8 realistic_gop_script streams of 6-12 pictures
+   (shorter lanes starve), sequential (K1S's two passes, K2F, K3F) and
+   slice_parallel=True (K1S's per-slice pass alone: one K1S launch a
+   picture), every lane's frames equal to oracle.decode_mpeg1, the 8
+   streams slice-parallel through the plain forms equal too; the
+   per-slice pass against scan_slices_torch on the run's pictures 0 (I)
+   and 1 (P) and timed against K1S's two passes; ms a picture (host
+   clock) and the device's share (CUDA-event spans of each picture's
+   decode_picture_impl); ops/composite.synthesize_field_pair and
+   synthesize_field_scrolled (K4 + field_canvas) on the decoded planes,
+   NTSC and PAL, OSD on every lane: equal to the plain forms on every
+   lane and to oracle.composite_field on 64 lanes (blend -1, 0, a fade,
+   full at both parities), ms of the pair, its canvas alone and a
+   scrolled field; models/sbc.decode_stream_batched (K6) on mono frame
+   lists of 8-15 frames equal to SbcOracle on every lane, and
+   ops/delta_sigma.modulate_spec (K5), two calls of 256 samples with the
+   state carried, equal to oracle.pdm_modulate on every lane;
 5. serving A: serve_scenario's full stage over the local HTTP Range
    server (min(256, --lanes) lanes, 16 ticks in chunks of 4, 2 titles
    of 4 GOPs, two injected faults, a snapshot at tick 8 restored into a
@@ -135,7 +154,8 @@ line is printed):
 9. the total seconds, the card's name and power limit, one JSON line
    with the kernels' numbers (launches: serving A's for K1-K6, the
    decode-only serving's for K1F-K3F, the mesh phase's for K3P and
-   K1S), and the final {"ok": true, ...} line.
+   K1S; phase O's launches and times under "phase_o" of K1S, K2F, K3F,
+   K4, K5 and K6), and the final {"ok": true, ...} line.
 
 Imports nothing of JAX.
 """
@@ -276,7 +296,9 @@ def plain_forms():
               MC.predict_compose_put_flat_torch),
              (MC, "predict_plane_rows", MC.predict_plane_rows_torch),
              (dsbc, "decode_frames_batched",
-              dsbc.decode_frames_batched_torch)]
+              dsbc.decode_frames_batched_torch),
+             (VS, "run_scan", VS.run_scan_torch),
+             (VS, "scan_slices_cuda", VS.scan_slices_torch)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, f in swaps:
@@ -1218,7 +1240,7 @@ def per_field_times(dev, yuv, pal: bool, sliders, reps: int) -> dict:
     r.update(scrolled_ms=time_ms(scrolled, reps),
              host_scrolled_ms=host_ms(scrolled))
     field = scrolled()
-    tmpl, dither = st._k4_consts()
+    tmpl, dither = CO.packed_tensors(pal, st.device)
     state = lambda: (  # noqa: E731
         st._tensor((st.frame_counter & 1).astype(np.int32), torch.int32),
         st._tensor(st.osd, torch.uint8), st._tensor(st.blend, torch.int32),
@@ -1231,8 +1253,8 @@ def per_field_times(dev, yuv, pal: bool, sliders, reps: int) -> dict:
     r.update(part_k4_pair_ms=time_ms(k4, reps),
              part_scroll_blit_ms=time_ms(lambda: CO.apply_hscroll(
                  y, u, v, *st._slide_on_device(), hs), reps),
-             part_canvas_ms=time_ms(lambda: OUT._field0_canvas(
-                 act, strip, tmpl, pal), reps),
+             part_canvas_ms=time_ms(lambda: CO.field_canvas(
+                 act[:, :1], strip, pal=pal, tmpl=tmpl), reps),
              part_uploads_ms=time_ms(state, reps))
     moved = (y.numel() + u.numel() + v.numel() + field.numel()
              + st.osd.nbytes + 4 * 4 * N)
@@ -1334,6 +1356,302 @@ def per_field_phase(dev, planes, smi: str, reps: int, fields: int = 6):
         f"== plain path (words, state, beep counters); K5 launches {counts}; "
         f"a call of 256 samples {ev_ms:.3f} ms (CUDA events), "
         f"{host_ms:.3f} ms (host clock), K5 alone {k5_ms:.3f} ms | {smi}")
+    return out
+
+
+def frames_equal(got, want) -> bool:
+    """Two lists of (y, u, v) numpy frames, byte for byte."""
+    import numpy as np
+    return len(got) == len(want) and all(
+        np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+
+
+@contextlib.contextmanager
+def picture_spans(spans: list):
+    """CUDA-event spans around every models/mpeg1.decode_picture_impl
+    call (the device's part of a decode_es_batched picture)."""
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    inner = M.decode_picture_impl
+
+    def spanned(*a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = inner(*a, **kw)
+        ev[1].record()
+        spans.append(ev)
+        return out
+    M.decode_picture_impl = spanned
+    try:
+        yield
+    finally:
+        M.decode_picture_impl = inner
+
+
+def oracle_decode(dev, smi: str, reps: int, lanes: int) -> dict:
+    """Phase O, decode: decode_es_batched at 352x192 on `lanes` lanes
+    tiled from 8 realistic_gop_script streams of 6-12 pictures, once
+    sequential (K1S's two passes) and once slice-parallel (its per-slice
+    pass alone), each lane equal to oracle.decode_mpeg1 of its stream;
+    the slice-parallel decode of the 8 streams through the plain forms
+    equal; the per-slice pass against scan_slices_torch and timed against
+    K1S's two passes on the run's first two pictures.  Returns the
+    numbers and each lane's first two frames (y, u, v, y2, u2, v2)."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.models import mpeg1 as M
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    from espflix_tpu_torch.tools import mpeg1_encode as ENC
+    from espflix_tpu_torch.tools import oracle as ORC
+    from espflix_tpu_torch.tools.content import realistic_gop_script
+
+    distinct = [ENC.encode_es(realistic_gop_script(
+        np.random.default_rng(4000 + i), n_pictures=6 + i * 6 // 7))
+        for i in range(8)]
+    want = [ORC.decode_mpeg1(es)[0] for es in distinct]
+    lens = [len(w) for w in want]
+    if lens != [6 + i * 6 // 7 for i in range(8)]:
+        raise AssertionError(f"oracle frame counts {lens}")
+    streams = [distinct[i % 8] for i in range(lanes)]
+    npics = max(lens)
+    out = {}
+    planes = None
+    for sp in (False, True):
+        mode = "slice_parallel" if sp else "sequential"
+        spans = []
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with picture_spans(spans):
+            got = M.decode_es_batched(streams, slice_parallel=sp, device=dev)
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(f"oracle decode {mode}", (
+            "K1S_slice_scan_seq", "K2F_dequant_idct_flat",
+            "K3F_predict_compose_put_flat"))
+        # the slice-parallel run launches K1S's per-slice pass alone: one
+        # launch a picture, where the sequential scan takes two
+        expect = dict(K1S_slice_scan_seq=npics * (1 if sp else 2),
+                      K2F_dequant_idct_flat=npics,
+                      K3F_predict_compose_put_flat=npics)
+        if counts != expect:
+            raise AssertionError(f"oracle decode {mode}: launches {counts}, "
+                                 f"expected {expect}")
+        bad = [i for i in range(lanes)
+               if not frames_equal(got[i], want[i % 8])]
+        if bad:
+            raise AssertionError(f"oracle decode {mode}: lanes {bad[:8]} "
+                                 "!= oracle.decode_mpeg1")
+        device_ms = sum(a.elapsed_time(b) for a, b in spans)
+        out[mode] = dict(launches=counts, picture_ms=wall / npics,
+                         device_share=device_ms / wall)
+        log(f"[oracle decode {mode}] {lanes} lanes x {npics} pictures "
+            f"(8 streams of {lens} pictures): every lane == "
+            f"oracle.decode_mpeg1 ({sum(len(g) for g in got)} frames); "
+            f"launches {counts}; {wall / npics:.1f} ms a picture (host "
+            f"clock), of it the device span {device_ms / npics:.2f} ms "
+            f"(share {device_ms / wall:.3f}) | {smi}")
+        if planes is None:
+            # each lane's first two frames, for the canvases
+            planes = [np.stack([g[f][c] for g in got])
+                      for f in (0, 1) for c in range(3)]
+        del got
+    with plain_forms():
+        plain = M.decode_es_batched(distinct, slice_parallel=True, device=dev)
+    bad = [i for i in range(8) if not frames_equal(plain[i], want[i])]
+    if bad:
+        raise AssertionError(f"oracle decode plain forms: lanes {bad}")
+    log(f"[oracle decode plain] the 8 streams slice-parallel through the "
+        f"plain forms on the card == oracle.decode_mpeg1")
+
+    # the per-slice pass and the two passes on the run's pictures 0 (I)
+    # and 1 (P), at the run's word window and budget
+    parsed = [M.parse_es(es)[1] for es in distinct]
+    pics = [p for ps in parsed for p in ps]
+    wpl = max((len(p.payload) + 3) // 4 + 4 for p in pics)
+    S = max(len(p.slice_offsets) for p in pics)
+    tables = M.decode_tables(dev)
+    kw = dict(mb_width=22, mb_height=12, lut=tables["lut"],
+              zigzag=tables["zigzag"])
+    for k in (0, 1):
+        b = M.make_picture_batch([parsed[i % 8][k] for i in range(lanes)],
+                                 words_per_lane=wpl, max_slices=S)
+        x = list(M.xs_to_torch({key: b[key] for key in M.PICTURE_KEYS[:7]},
+                               dev).values())
+        budget = wpl * 32
+        per_slice = lambda: VS.scan_slices_cuda(  # noqa: E731
+            *x, budget=budget, **kw)
+        got = per_slice()
+        ref, plain_ms = run_timed(lambda: VS.scan_slices_torch(
+            *x, budget=budget, **kw))
+        err = require_equal(f"K1S per-slice pass, picture {k}",
+                            zip(got, ref))
+        tag = "" if k == 0 else "_p"
+        out["per_slice" + tag] = dict(
+            **timed(per_slice, reps), plain_ms=plain_ms, max_abs_err=err,
+            steps=int(got[3].max()))
+        out["two_passes" + tag] = timed(lambda: VS.run_scan(
+            *x, max_steps=budget, max_symbols=budget, **kw), reps)
+        log(f"[oracle K1S] picture {k} at {lanes} lanes x {S} slices: "
+            f"per-slice pass (steps / end / lo / hi and buffers) == "
+            f"scan_slices_torch; per-slice pass {out['per_slice' + tag]}, "
+            f"both passes {out['two_passes' + tag]} ms | {smi}")
+    return out, planes
+
+
+def oracle_fields(dev, smi: str, reps: int, lanes: int, planes) -> dict:
+    """Phase O, canvases: synthesize_field_pair and
+    synthesize_field_scrolled on decoded planes at `lanes` lanes, NTSC
+    and PAL, OSD on every lane (always shown, hidden, fades, full; both
+    parities): every lane equal to the plain forms, 64 lanes (each blend
+    class at each parity) equal to oracle.composite_field; ms of the
+    pair, of its canvas alone and of a scrolled field."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.ops import composite as CO
+    from espflix_tpu_torch.tools import oracle as ORC
+
+    N = lanes
+    rng = np.random.default_rng(21)
+    y, u, v, y2, u2, v2 = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in planes)
+    classes = np.array([-1, 0, 17, 200], np.int32)
+    blend = rng.integers(-1, 64, N).astype(np.int32)
+    n_orc = min(64, N)
+    blend[:n_orc] = classes[(np.arange(n_orc) // 2) % 4]
+    parity = (np.arange(N) % 2).astype(np.int32)
+    osd = rng.integers(0, 256, (N, 16, 80), dtype=np.uint8)
+    prog = rng.integers(0, 241, N).astype(np.int32)
+    hs = rng.integers(-352, 353, N).astype(np.int32)
+    hs[::5] = 0
+    state = [torch.from_numpy(a).to(dev) for a in (parity, osd, blend, prog)]
+    hs_t = torch.from_numpy(hs).to(dev)
+    host = [t[:n_orc].cpu().numpy() for t in (y, u, v)]
+    scrolled = [t[:n_orc].cpu().numpy()
+                for t in CO.apply_hscroll(y, u, v, y2, u2, v2, hs_t)]
+    out = {}
+    for pal in (False, True):
+        std = "PAL" if pal else "NTSC"
+        torch.cuda.synchronize()
+        reset_counts()
+        pair = CO.synthesize_field_pair(y, u, v, *state, pal=pal)
+        sc = CO.synthesize_field_scrolled(y, u, v, y2, u2, v2, hs_t, *state,
+                                          pal=pal)
+        counts = read_counts(f"oracle fields {std}",
+                             ("K4_composite_field_pair",))
+        with plain_forms():
+            plain = (CO.synthesize_field_pair(y, u, v, *state, pal=pal),
+                     CO.synthesize_field_scrolled(y, u, v, y2, u2, v2, hs_t,
+                                                  *state, pal=pal))
+        for name, a, b in (("field pair", pair, plain[0]),
+                           ("scrolled field", sc, plain[1])):
+            if not torch.equal(a, b):
+                lanes_off = (a != b).flatten(1).any(dim=1).nonzero()[:8]
+                raise AssertionError(f"{name} {std}: kernel != plain on "
+                                     f"lanes {lanes_off.flatten().tolist()}")
+        del plain
+        pair_h = pair[:n_orc].cpu().numpy()
+        sc_h = sc[:n_orc].cpu().numpy()
+        for i in range(n_orc):
+            a = (osd[i], blend[i], prog[i])
+            for f in (0, 1):
+                w = ORC.composite_field(*(p[i] for p in host),
+                                        (parity[i] + f) & 1, pal, *a)
+                if not np.array_equal(pair_h[i, f], w):
+                    raise AssertionError(f"field pair {std}: lane {i} "
+                                         f"field {f} != composite_field")
+            w = ORC.composite_field(*(p[i] for p in scrolled), parity[i],
+                                    pal, *a)
+            if not np.array_equal(sc_h[i], w):
+                raise AssertionError(f"scrolled field {std}: lane {i} != "
+                                     "composite_field")
+        tmpl, dither = CO.packed_tensors(pal, y.device)
+        act, strip, _chk = CO.synthesize_field_pair_parts(
+            y, u, v, *state, pal=pal, tmpl=tmpl, dither=dither)
+        out[std] = dict(
+            launches=counts["K4_composite_field_pair"],
+            pair_ms=time_ms(lambda: CO.synthesize_field_pair(
+                y, u, v, *state, pal=pal), reps),
+            pair_canvas_ms=time_ms(lambda: CO.field_canvas(
+                act, strip, pal=pal, tmpl=tmpl), reps),
+            scrolled_field_ms=time_ms(lambda: CO.synthesize_field_scrolled(
+                y, u, v, y2, u2, v2, hs_t, *state, pal=pal), reps))
+        out[std]["pair_bound_ms"], _by = bound(nbytes(y, u, v, *state,
+                                                      pair))
+        log(f"[oracle fields {std}] {N} lanes: the pair "
+            f"{tuple(pair.shape)} and a scrolled field ({int((hs != 0).sum())}"
+            f" lanes sliding) == plain forms on every lane and == "
+            f"oracle.composite_field on lanes 0-{n_orc - 1} (blend -1 / 0 "
+            f"/ 17 / 200 at both parities); K4 launches {counts}; ms "
+            f"{out[std]} | {smi}")
+    return out
+
+
+def oracle_audio(dev, smi: str, reps: int, lanes: int) -> dict:
+    """Phase O, audio: decode_stream_batched (K6) on `lanes` lanes of mono
+    SBC frames (8 frame lists of 8-15 frames, tiled), each lane equal to
+    SbcOracle frame by frame; modulate_spec (K5) on the decoded PCM, two
+    calls of 256 samples with the state carried, each lane equal to
+    oracle.pdm_modulate with its state carried."""
+    import numpy as np
+    import torch
+    from espflix_tpu_torch.models import sbc as dsbc
+    from espflix_tpu_torch.ops import delta_sigma as DS
+    from espflix_tpu_torch.tools import oracle as ORC
+    from espflix_tpu_torch.tools.sbc_encode import make_frame
+
+    rng = np.random.default_rng(31)
+    lists = [[make_frame(rng.integers(0, 16, (1, 8)), rng=rng, bitpool=28,
+                         allocation=int(rng.random() < 0.5))
+              for _ in range(8 + i)] for i in range(8)]
+    want = []
+    for frames in lists:
+        dec = ORC.SbcOracle()
+        want.append(np.concatenate([dec.decode_frame(f)[0] for f in frames]))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    pcm = dsbc.decode_stream_batched([lists[i % 8] for i in range(lanes)],
+                                     device=dev)
+    sbc_wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts("oracle sbc", ("K6_sbc_decode",))
+    bad = [i for i in range(lanes) if not np.array_equal(pcm[i],
+                                                         want[i % 8])]
+    if bad:
+        raise AssertionError(f"decode_stream_batched: lanes {bad[:8]} != "
+                             "SbcOracle")
+    T = 256
+    x = torch.from_numpy(np.stack([p[:2 * T] for p in pcm])).to(dev)
+    reset_counts()
+    state = DS.init_state(lanes, dev)
+    words = []
+    for k in range(2):
+        w, state = DS.modulate_spec(x[:, k * T:(k + 1) * T].contiguous(),
+                                    state, n_samples=T)
+        words.append(w)
+    counts.update(read_counts("oracle pdm", ("K5_pdm",)))
+    words = torch.cat(words, dim=1).cpu().numpy()
+    state = state.cpu().numpy()
+    xh = x.cpu().numpy()
+    for i in range(lanes):
+        st = np.zeros(3, np.int32)
+        for k in range(2):
+            w, st = ORC.pdm_modulate(xh[i, k * T:(k + 1) * T], st)
+            if not np.array_equal(words[i, k * 2 * T:(k + 1) * 2 * T], w):
+                raise AssertionError(f"modulate_spec: lane {i} call {k} != "
+                                     "pdm_modulate")
+        if not np.array_equal(state[i], st):
+            raise AssertionError(f"modulate_spec: lane {i} state != "
+                                 "pdm_modulate's")
+    xc = x[:, :T].contiguous()
+    st0 = DS.init_state(lanes, dev)
+    out = dict(launches=counts, sbc_stream_ms=sbc_wall,
+               modulate_spec_ms=time_ms(lambda: DS.modulate_spec(
+                   xc, st0, n_samples=T), reps))
+    log(f"[oracle audio] {lanes} lanes: decode_stream_batched (8 lists of "
+        f"8-15 mono frames) == SbcOracle on every lane ({sbc_wall:.1f} ms "
+        f"host clock); modulate_spec, 2 calls of {T} samples with the state "
+        f"carried == pdm_modulate on every lane ({out['modulate_spec_ms']:.3f}"
+        f" ms a call); launches {counts} | {smi}")
     return out
 
 
@@ -2467,6 +2785,36 @@ def main() -> int:
         elif k["name"] == "K5_pdm":
             k["per_call"] = per_field["modulate"]
     log(f"[time] phase 4o done at {time.perf_counter() - t_start:.1f} s")
+
+    # ---- O. the validation path against the C oracle -----------------
+    t0 = time.perf_counter()
+    o_decode, o_planes = oracle_decode(dev, smi, args.reps, N)
+    o_fields = oracle_fields(dev, smi, args.reps, N, o_planes)
+    del o_planes
+    o_audio = oracle_audio(dev, smi, args.reps, N)
+    modes = ("sequential", "slice_parallel")
+    phase_o = {
+        "K1S_slice_scan_seq": dict(
+            launches={m: o_decode[m]["launches"]["K1S_slice_scan_seq"]
+                      for m in modes},
+            **{k: o_decode[k] for k in ("per_slice", "two_passes",
+                                        "per_slice_p", "two_passes_p")}),
+        "K4_composite_field_pair": o_fields,
+        "K5_pdm": dict(launches=o_audio["launches"]["K5_pdm"],
+                       modulate_spec_ms=o_audio["modulate_spec_ms"]),
+        "K6_sbc_decode": dict(launches=o_audio["launches"]["K6_sbc_decode"],
+                              stream_ms=o_audio["sbc_stream_ms"])}
+    for name in ("K2F_dequant_idct_flat", "K3F_predict_compose_put_flat"):
+        phase_o[name] = dict(launches={m: o_decode[m]["launches"][name]
+                                       for m in modes})
+    phase_o["K1S_slice_scan_seq"].update(
+        {m: {k: o_decode[m][k] for k in ("picture_ms", "device_share")}
+         for m in modes})
+    for k in kernels:
+        if k["name"] in phase_o:
+            k["phase_o"] = phase_o[k["name"]]
+    log(f"[time] phase O done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 5, 6. serving: one service behind the local HTTP server -------
     serve_lanes = min(256, args.lanes)

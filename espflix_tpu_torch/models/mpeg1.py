@@ -155,30 +155,40 @@ def decode_picture_impl(words, slice_starts, slice_rows, n_slices,
                         max_symbols: int = 20000,
                         tables: dict | None = None):
     """Decode one picture per lane on the device parser: the port of
-    espflix_tpu.models.mpeg1.decode_picture_impl (mpeg1.py:260-320)
-    with slice_parallel=False -- the sequential scan (ops/vlc_scan.
-    run_scan, K1S on a card) and the lane-minor dense phase
-    (dense_compose_flat, K2F + K3F).
+    espflix_tpu.models.mpeg1.decode_picture_impl (mpeg1.py:260-320).
+    slice_parallel=False runs the sequential scan (ops/vlc_scan.
+    run_scan, K1S on a card); slice_parallel=True scans every slice as
+    its own row (vlc_scan.scan_slices_cuda, K1S's per-slice pass alone,
+    on a card; scan_slices_torch on the CPU), each (lane, slice) with
+    the whole budget, into its lane's buffers.  Both then run the
+    lane-minor dense phase (dense_compose_flat, K2F + K3F).
 
     Arguments are the make_picture_batch arrays as tensors on frames'
     device (xs_to_torch); tables: decode_tables(device), built when
     None.  Frames are updated in place.  Returns (frames, presented
-    y/u/v, info) with info error / ok bool[N] and iters int32[N]; a lane
-    errors on an FSM error or when its picture is not scanned within
-    min(max_steps, max_symbols) symbols.  Pure lane-local: the mesh runs
+    y/u/v, info) with info error / ok bool[N] and iters int32[N]: a lane
+    errors on an FSM error or when its picture (sequential) or one of
+    its slices (slice-parallel) is not scanned within min(max_steps,
+    max_symbols) symbols; iters is the most steps any lane (sequential)
+    or any slice (slice-parallel) took.  Pure lane-local: the mesh runs
     it per shard."""
-    if slice_parallel:
-        raise NotImplementedError(
-            "slice_parallel=True (one scan row per slice through run_scan) "
-            "is not ported; the slice scan of decode_picture_batch_sliced "
-            "is the port's slice-parallel decode")
     if tables is None:
         tables = decode_tables(frames["y"].device)
     N = words.shape[0]
-    coeffs, recs, nfinal, err, iters = VS.run_scan(
-        words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
-        r_size, mb_width=mb_width, mb_height=mb_height, max_steps=max_steps,
-        max_symbols=max_symbols, lut=tables["lut"], zigzag=tables["zigzag"])
+    args = (words, slice_starts, slice_rows, n_slices, pic_type, full_pel,
+            r_size)
+    kw = dict(mb_width=mb_width, mb_height=mb_height, lut=tables["lut"],
+              zigzag=tables["zigzag"])
+    if slice_parallel:
+        scan = (VS.scan_slices_torch if words.device.type == "cpu"
+                else VS.scan_slices_cuda)
+        coeffs, recs, nfinal, steps, end, _lo, _hi = scan(
+            *args, budget=min(max_steps, max_symbols), **kw)
+        err = (end != VS.END_CLEAN).any(dim=1)
+        iters = steps.max()
+    else:
+        coeffs, recs, nfinal, err, iters = VS.run_scan(
+            *args, max_steps=max_steps, max_symbols=max_symbols, **kw)
     frames, presented = dense_compose_flat(
         coeffs, recs, nfinal, intra_q, non_intra_q, active, frames,
         mb_width=mb_width, mb_height=mb_height,
@@ -213,6 +223,63 @@ def xs_to_torch(xs: dict, device) -> dict:
             a = a.view(np.int32)
         out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
+
+
+def decode_es_batched(streams: list[bytes], words_per_lane=None,
+                      max_steps=None, check_errors: bool = True, *,
+                      slice_parallel: bool = False, device="cuda"):
+    """Decode N elementary streams in lock-step; returns per-lane lists
+    of numpy (y, u, v) frames: the port of espflix_tpu.models.mpeg1.
+    decode_es_batched (mpeg1.py:970-1020), the validation and offline
+    path.  Streams must share dimensions; a lane shorter than the
+    longest is starved and presents nothing once its stream ends.
+
+    One words_per_lane and slice count serve the whole run (the largest
+    picture's, unless words_per_lane is given); the symbol budget is the
+    batch's bit count (max_steps overrides it), so no picture is cut by
+    a serving budget.  check_errors raises ValueError naming the picture
+    and the active lanes in error.  Each picture runs decode_picture_impl
+    on `device`: K1S, K2F and K3F on a card, their plain forms on the
+    CPU.  slice_parallel (which the JAX function does not take) is
+    passed through to it: the same decode with one scan row a slice."""
+    parsed = [parse_es(s) for s in streams]
+    seq = parsed[0][0]
+    if any((sq.width, sq.height) != (seq.width, seq.height)
+           for sq, _ in parsed):
+        raise ValueError("streams of different dimensions")
+    npics = max(len(p) for _, p in parsed)
+    N = len(streams)
+    mbw, mbh = seq.mb_width, seq.mb_height
+    frames = init_frame_state(N, mbw * 16, mbh * 16, device)
+    tables = decode_tables(frames["y"].device)
+    outs = [[] for _ in range(N)]
+    all_pics = [p for _, ps in parsed for p in ps]
+    if words_per_lane is None:
+        words_per_lane = max((len(p.payload) + 3) // 4 + 4
+                             for p in all_pics)
+    uniform_slices = max(
+        max((len(p.slice_offsets) for p in all_pics), default=1), 1)
+    for k in range(npics):
+        batch_pics = [p[k] if k < len(p) else None for _, p in parsed]
+        b = make_picture_batch(batch_pics, words_per_lane=words_per_lane,
+                               max_slices=uniform_slices)
+        ms = int(max_steps or b["words"].shape[1] * 32)
+        x = xs_to_torch({key: b[key] for key in PICTURE_KEYS},
+                        frames["y"].device)
+        frames, presented, info = decode_picture_impl(
+            *x.values(), frames, mb_width=b["mb_width"],
+            mb_height=b["mb_height"], max_steps=ms, max_symbols=ms,
+            slice_parallel=slice_parallel, tables=tables)
+        if check_errors:
+            bad = info["error"].cpu().numpy() & b["active"]
+            if bad.any():
+                raise ValueError(f"picture {k}: lane decode errors at "
+                                 f"{np.nonzero(bad)[0]}")
+        py, pu, pv = (presented[c].cpu().numpy() for c in "yuv")
+        for i in range(N):
+            if batch_pics[i] is not None:
+                outs[i].append((py[i], pu[i], pv[i]))
+    return outs
 
 
 SCAN_KEYS = ("words", "start_bits", "rows", "alive", "pic_type",

@@ -11,6 +11,7 @@ channel 1's.
 ``decode_frames_batched`` launches K6 (csrc/sbc.cu, one block per lane)
 on CUDA tensors; ``decode_frames_batched_torch`` is its plain form (a
 few hundred small torch ops a call), taken for CPU tensors.
+``decode_stream_batched`` decodes per-lane frame lists through it.
 """
 
 from __future__ import annotations
@@ -256,3 +257,31 @@ def decode_frames_batched_torch(words, hist, active=None, n_valid=None, *,
         pcm = torch.where(active[:, None], pcm, 0)
         error = error & active[:, None]
     return pcm.to(torch.int16), new_hist, error, frame_bits
+
+
+def decode_stream_batched(frame_bytes_per_lane: list, frame_len: int = 64,
+                          channels: int = 1, *, device="cuda"):
+    """Decode per-lane lists of equal-size frames from a fresh state:
+    the port of espflix_tpu.models.sbc.decode_stream_batched
+    (sbc.py:223-241).  Lanes shorter than the longest are padded with
+    zero frames (which decode as errors and leave the state alone), and
+    their PCM is trimmed to their own frames.  One decode_frames_batched
+    call on `device` (K6 on a card, its plain form on the CPU).
+
+    Returns a list of int16 numpy arrays, frames * channels * 128
+    samples a lane."""
+    N = len(frame_bytes_per_lane)
+    F = max(len(f) for f in frame_bytes_per_lane)
+    arr = np.zeros((N, F, frame_len), np.uint8)
+    for i, frames in enumerate(frame_bytes_per_lane):
+        for j, f in enumerate(frames):
+            if len(f) != frame_len:
+                raise ValueError(f"lane {i} frame {j}: {len(f)} bytes, "
+                                 f"not {frame_len}")
+            arr[i, j] = np.frombuffer(f, np.uint8)
+    words = torch.from_numpy(frames_to_words(arr).view(np.int32)).to(device)
+    pcm, _hist, _err, _fb = decode_frames_batched(
+        words, init_state(N, words.device), n_frames=F, channels=channels)
+    pcm = pcm.cpu().numpy()
+    per = channels * PCM_PER_FRAME
+    return [pcm[i, :len(frame_bytes_per_lane[i]) * per] for i in range(N)]

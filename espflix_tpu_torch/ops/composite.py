@@ -1,12 +1,16 @@
 """NTSC/PAL composite synthesis: both fields of a frame, parts form (K4).
 
 The port of espflix_tpu.ops.composite_pallas.synthesize_field_pair_parts
-(composite_pallas.py:205-264) and of its tap helpers
-assemble_canvas_packed / unpack_fields (:280-317).  The signal stays
-packed (one int16 = two DAC bytes, little-endian) and in parts form:
-per-field active sample pairs [N, 2, 192, 352], ONE OSD strip
-[N, 16, W2] shared by both fields, and the complete per-lane canvas
-byte sum (the constant template bytes enter as ``_parts_consts``' base).
+(composite_pallas.py:205-264).  The signal stays packed (one int16 =
+two DAC bytes, little-endian) and in parts form: per-field active sample
+pairs [N, 2, 192, 352], ONE OSD strip [N, 16, W2] shared by both fields,
+and the complete per-lane canvas byte sum (the constant template bytes
+enter as ``_parts_consts``' base).  ``field_canvas`` lays parts into
+whole uint8 fields (the chain's taps, the per-field output path), and
+the full-canvas functions of espflix_tpu.ops.composite --
+``synthesize_field_pair``, ``synthesize_field``,
+``synthesize_field_scrolled``, ``synthesize_active`` -- are K4's pair
+(its plain form on the CPU) through it.
 ``apply_hscroll`` (plain torch; XLA in the JAX package) is the flip
 animation's wraparound blit that the scrolled chain applies first.
 
@@ -274,18 +278,6 @@ def synthesize_field_pair_parts(y, u, v, frame_parity, osd, osd_blend,
     return act, strip, chk
 
 
-def assemble_canvas_packed(act, strip, *, pal: bool, tmpl):
-    """(act, strip) -> the full packed canvas int16[N, 2, L, W2]."""
-    _t, _d, g = _packed_consts(pal)
-    N = act.shape[0]
-    L, W2 = tmpl.shape
-    xp = g.active_x0() // 2
-    canvas = tmpl[None, None].expand(N, 2, L, W2).clone()
-    canvas[:, :, g.active_top:g.active_top + 192, xp:xp + 352] = act
-    canvas[:, :, g.osd_top:g.osd_top + OSD_H, :] = strip[:, None]
-    return canvas
-
-
 # ease-in/out scroll animator table (video.cpp:1077), indexed by the
 # per-field countdown |animate_index| - 1; sign selects direction
 EASE = np.array([0, 8, 16, 24, 48, 72, 104, 136,
@@ -316,9 +308,86 @@ def apply_hscroll(y, u, v, y2, u2, v2, hscroll):
     return wrap(y, y2, h), wrap(u, u2, h >> 1), wrap(v, v2, h >> 1)
 
 
-def unpack_fields(packed):
-    """int16[N, 2, L, W/2] -> uint8[N, 2, L, W] (little-endian pairs)."""
-    N, F2, L, W2 = packed.shape
-    p = packed.to(torch.int32) & 0xFFFF
-    return torch.stack([p & 0xFF, p >> 8], dim=-1).reshape(
-        N, F2, L, W2 * 2).to(torch.uint8)
+@functools.cache
+def packed_tensors(pal: bool, device: torch.device):
+    """K4's constants on `device`: (templates int16[L, W/2], dither
+    int16[2, 192, 352]), _packed_consts(pal) as tensors."""
+    tmpl, dither, _g = _packed_consts(pal)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (tmpl, dither))
+
+
+def field_canvas(act, strip, *, pal: bool, tmpl):
+    """K4's parts as whole fields: act int16[N, F, 192, 352] (F fields,
+    e.g. both or field 0 alone) and strip int16[N, 16, W/2] ->
+    uint8[N, F, L, W], the line templates tmpl int16[L, W/2] with the
+    active samples and the OSD strip laid in (the packed int16 pairs
+    are little-endian byte pairs).  The copies move 8-byte words: the
+    line width and the active region's origin and width are multiples
+    of 8 bytes in both standards."""
+    _t, _d, g = _packed_consts(pal)
+    N, F = act.shape[:2]
+    L = tmpl.shape[0]
+    w64 = torch.int64
+    canvas = tmpl.view(w64)[None, None].expand(N, F, L, -1).clone()
+    x = g.active_x0() // 8
+    canvas[:, :, g.active_top:g.active_top + 192, x:x + 88] = \
+        act.view(w64)
+    canvas[:, :, g.osd_top:g.osd_top + OSD_H, :] = \
+        strip.view(w64)[:, None]
+    return canvas.view(torch.uint8)
+
+
+def _pair_parts(y, u, v, frame_parity, osd, osd_blend, osd_progress, pal):
+    tmpl, dither = packed_tensors(pal, y.device)
+    act, strip, _chk = synthesize_field_pair_parts(
+        y, u, v, frame_parity, osd, osd_blend, osd_progress, pal=pal,
+        tmpl=tmpl, dither=dither)
+    return act, strip, tmpl
+
+
+def synthesize_field_pair(y, u, v, frame_parity, osd, osd_blend,
+                          osd_progress, *, pal: bool):
+    """Both fields of one frame: uint8[N, 2, line_count, line_width],
+    field 0 at frame_parity, field 1 at the other parity (the port of
+    espflix_tpu.ops.composite.synthesize_field_pair).  Arguments as
+    synthesize_field_pair_parts without the constants, all tensors on
+    one device: K4 on a card, its plain form on the CPU, then
+    field_canvas."""
+    act, strip, tmpl = _pair_parts(y, u, v, frame_parity, osd, osd_blend,
+                                   osd_progress, pal)
+    return field_canvas(act, strip, pal=pal, tmpl=tmpl)
+
+
+def synthesize_field(y, u, v, frame_parity, osd, osd_blend, osd_progress,
+                     *, pal: bool):
+    """One field: uint8[N, line_count, line_width] DAC samples at
+    frame_parity (espflix_tpu.ops.composite.synthesize_field): K4's pair
+    with field 0 alone laid into the templates.  osd uint8[N, 16, 80];
+    osd_blend int32[N] (-1 always shown, 0 hidden, 1..31 a fade, >= 32
+    full); osd_progress int32[N] in [0, 240] units."""
+    act, strip, tmpl = _pair_parts(y, u, v, frame_parity, osd, osd_blend,
+                                   osd_progress, pal)
+    return field_canvas(act[:, :1], strip, pal=pal, tmpl=tmpl)[:, 0]
+
+
+def synthesize_field_scrolled(y, u, v, y2, u2, v2, hscroll, frame_parity,
+                              osd, osd_blend, osd_progress, *, pal: bool):
+    """synthesize_field over the flip animation's wraparound blit of
+    (y, u, v) and the outgoing (y2, u2, v2) by hscroll int32[N]
+    (apply_hscroll)."""
+    return synthesize_field(*apply_hscroll(y, u, v, y2, u2, v2, hscroll),
+                            frame_parity, osd, osd_blend, osd_progress,
+                            pal=pal)
+
+
+def synthesize_active(y, u, v, frame_parity, *, pal: bool):
+    """The active region's samples: uint8[N, 192, 704] at frame_parity
+    (espflix_tpu.ops.composite.synthesize_active), K4's field 0 without
+    an OSD as bytes."""
+    N = y.shape[0]
+    zeros = torch.zeros(N, dtype=torch.int32, device=y.device)
+    osd = torch.zeros((N, OSD_H, OSD_W), dtype=torch.uint8, device=y.device)
+    act, _strip, _tmpl = _pair_parts(y, u, v, frame_parity, osd, zeros,
+                                     zeros, pal)
+    return act[:, 0].contiguous().view(torch.uint8)

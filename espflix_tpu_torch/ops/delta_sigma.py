@@ -11,7 +11,9 @@ arithmetic wraps.
 state in registers; the bit step rewritten so that i2's chain is three
 dependent integer operations, with the same bits) on CUDA tensors;
 ``modulate_torch`` is its plain eager recurrence (~2*16*T dependent
-steps of a few small ops each), taken for CPU tensors.
+steps of a few small ops each), taken for CPU tensors.  ``modulate_spec``
+is the same function under the JAX package's second name, and
+``silence`` the 0xAAAA words of a starved lane.
 """
 
 from __future__ import annotations
@@ -76,3 +78,19 @@ def modulate(pcm, state, *, n_samples: int):
     build.launch("esp_pdm", pcm, state, words, state_out, N, Tn)
     launches += 1
     return words, state_out
+
+
+def modulate_spec(pcm, state, *, n_samples: int):
+    """espflix_tpu.ops.delta_sigma.modulate_spec: bit for bit the same
+    function as `modulate`, and run as it (K5 on a card, modulate_torch
+    on the CPU).  The JAX form computes both branch outcomes of every
+    bit to shorten the TPU vector unit's dependent chain; that is a
+    latency trick of that unit, and K5 has its own shortened chain, so
+    it is not carried over."""
+    return modulate(pcm, state, n_samples=n_samples)
+
+
+def silence(n_lanes: int, n_words: int, device):
+    """PDM silence: int32[n_lanes, n_words] of SILENCE_WORD (0xAAAA)."""
+    return torch.full((n_lanes, n_words), SILENCE_WORD, dtype=torch.int32,
+                      device=device)

@@ -875,14 +875,16 @@ def _emission_mb(idx, mb_count: int):
 
 def _scan_lanes_torch(words, slice_starts, slice_rows, n_slices, pic_type,
                       full_pel, r_size, *, mb_width: int, mb_height: int,
-                      budget: int, lut, zigzag, track_mbs: bool = False):
-    """The lockstep FSM over the lanes, every lane walking its slices for
-    at most `budget` steps, each step's emissions set into one [N, C1]
-    buffer laid out [recs | nfinal | coeffs | trash] as the JAX scan's
-    bulk scatter.  Returns (coeffs, recs, nfinal, final state, steps
-    int32[N], lo, hi int32[N]): lo / hi the lowest and highest MB index
-    each lane emitted into (mb_count / -1 without emissions), tracked
-    only when track_mbs."""
+                      budget: int, lut, zigzag, track_mbs: bool = False,
+                      groups: int = 1):
+    """The lockstep FSM over the rows, every row walking its slices for
+    at most `budget` steps, each step's emissions set into one
+    [N / groups, C1] buffer laid out [recs | nfinal | coeffs | trash] as
+    the JAX scan's bulk scatter, consecutive `groups` rows into one
+    buffer row (its out_groups).  Returns (coeffs, recs, nfinal, final
+    state, steps int32[N], lo, hi int32[N]): lo / hi the lowest and
+    highest MB index each row emitted into (mb_count / -1 without
+    emissions), tracked only when track_mbs."""
     N = words.shape[0]
     dev = words.device
     mb_count = mb_width * mb_height
@@ -894,8 +896,8 @@ def _scan_lanes_torch(words, slice_starts, slice_rows, n_slices, pic_type,
     steps = torch.zeros(N, dtype=torch.int32, device=dev)
     lo = torch.full((N,), mb_count, dtype=torch.int32, device=dev)
     hi = torch.full((N,), -1, dtype=torch.int32, device=dev)
-    buf = torch.zeros(N * C1, dtype=torch.int32, device=dev)
-    base = torch.arange(N, device=dev) * C1
+    buf = torch.zeros(N // groups * C1, dtype=torch.int32, device=dev)
+    base = torch.arange(N, device=dev) // groups * C1
     for _ in range(budget):
         live = st["state"] != ST_DONE
         if not bool(live.any()):
@@ -909,7 +911,7 @@ def _scan_lanes_torch(words, slice_starts, slice_rows, n_slices, pic_type,
             mi = _emission_mb(i1, mb_count)
             lo = torch.where(mi >= 0, torch.minimum(lo, mi), lo)
             hi = torch.maximum(hi, mi)
-    buf = buf.reshape(N, C1)
+    buf = buf.reshape(N // groups, C1)
     return (wrap16(buf[:, mb_count + MB6:C1 - 1]),
             buf[:, :mb_count].contiguous(),
             buf[:, mb_count:mb_count + MB6].contiguous(), st, steps, lo, hi)
@@ -936,11 +938,13 @@ def scan_slices_torch(words, slice_starts, slice_rows, n_slices, pic_type,
                       budget: int, lut, zigzag):
     """Plain form of K1S's per-slice pass: each (lane, slice) scanned
     alone from its start bit for at most `budget` steps, as the lockstep
-    scan of a one-slice picture.  Returns the pairs' (coeffs, recs,
-    nfinal) with pair lane * S + k on the first axis, and steps / end /
-    lo / hi int32[N, S] as csrc/scan.cu scan_slices_kernel reports them
-    (dead pairs, k >= n_slices: 0 steps, END_CLEAN, lo = mb_count, hi =
-    -1)."""
+    scan of a one-slice picture, its emissions stored into its lane's
+    buffers.  Returns (coeffs int16[N, MB*384], recs int32[N, MB],
+    nfinal int32[N, MB*6], steps, end, lo, hi int32[N, S]) as
+    csrc/scan.cu scan_slices_kernel gives them (dead pairs,
+    k >= n_slices: 0 steps, END_CLEAN, lo = mb_count, hi = -1).  Where
+    two slices emit into one slot (corrupt input only) the slot keeps
+    one of the two values: which, neither form defines."""
     _check_seq(words, slice_starts, slice_rows, n_slices, pic_type,
                full_pel, r_size)
     N, S = slice_starts.shape
@@ -954,7 +958,7 @@ def scan_slices_torch(words, slice_starts, slice_rows, n_slices, pic_type,
         rep(words), slice_starts.reshape(-1, 1), slice_rows.reshape(-1, 1),
         live, rep(pic_type), rep(full_pel), rep(r_size), mb_width=mb_width,
         mb_height=mb_height, budget=budget, lut=lut, zigzag=zigzag,
-        track_mbs=True)
+        track_mbs=True, groups=S)
     end = torch.where(st["error"], END_ERROR,
                       torch.where(st["state"] != ST_DONE, END_CUT, END_CLEAN))
     return (coeffs, recs, nfinal) + tuple(

@@ -187,9 +187,8 @@ class FullChain(nn.Module):
                 ti = ti - lane0
                 inside = (ti >= 0) & (ti < n_lanes)
                 ti = ti.clamp(0, n_lanes - 1)
-            canvas = CO.assemble_canvas_packed(
+            out["tap_fields"] = CO.field_canvas(
                 f_act[ti], f_strip[ti], pal=self.pal, tmpl=self.templates)
-            out["tap_fields"] = CO.unpack_fields(canvas)
             out["tap_pdm"] = pdm[ti]
             if lane0 is not None:
                 out["tap_fields"] = torch.where(

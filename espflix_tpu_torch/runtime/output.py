@@ -9,9 +9,9 @@ chain (runtime/chain.py) consumes; and the per-field path outside the
 chain:
 
   * ``synthesize(y, u, v)``: one composite field per lane at parity
-    frame_counter & 1 -- K4 (ops/composite.synthesize_field_pair_parts,
-    field 0 of the pair kept), after the flip animation's scroll blit
-    when a lane slides -- as a uint8[N, L, W] tensor on the stage's
+    frame_counter & 1 -- ops/composite.synthesize_field (K4, field 0 of
+    the pair laid into its template), after the flip animation's scroll
+    blit when a lane slides -- as a uint8[N, L, W] tensor on the stage's
     device;
   * ``modulate(pcm, starved)``: beep substitution, then K5
     (ops/delta_sigma.modulate), starved lanes 0xAAAA with their
@@ -68,7 +68,6 @@ class OutputStage:
         # start_slide changed since they were uploaded
         self._slide_dev = None
         self._slide_dirty: set[int] = set()
-        self._consts = None              # K4's template + dither tensors
 
     # -- flip animation (video.cpp:1077-1088, 1163-1178) ----------------
     def start_slide(self, lane: int, direction: int, prev=None):
@@ -166,14 +165,6 @@ class OutputStage:
         return self._slide
 
     # -- synthesis ------------------------------------------------------
-    def _k4_consts(self):
-        if self._consts is None:
-            tmpl, dither, _g = C._packed_consts(self.pal)
-            self._consts = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in (tmpl, dither))
-        return self._consts
-
     def _slide_on_device(self):
         """The slide snapshots on the device, uploading only what
         start_slide changed since the last call (or all of them once)."""
@@ -195,8 +186,8 @@ class OutputStage:
         """One field per lane: uint8[N, line_count, line_width] on the
         stage's device (numpy or tensor planes, 352x192).  Equal to the
         JAX stage's C.synthesize_field / synthesize_field_scrolled at
-        parity frame_counter & 1: K4's field 0 at that parity, its
-        active samples and OSD strip laid into the field's template."""
+        parity frame_counter & 1: ops/composite.synthesize_field, K4's
+        field 0 at that parity laid into the field's template."""
         planes = tuple(self._tensor(p, torch.uint8) for p in (y, u, v))
         parity = self._tensor((self.frame_counter & 1).astype(np.int32),
                               torch.int32)
@@ -206,13 +197,10 @@ class OutputStage:
             planes = C.apply_hscroll(*planes, *self._slide_on_device(),
                                      self._tensor(self.hscroll,
                                                   torch.int32))
-        tmpl, dither = self._k4_consts()
-        act, strip, _chk = C.synthesize_field_pair_parts(
+        fields = C.synthesize_field(
             *planes, parity, self._tensor(self.osd, torch.uint8),
             self._tensor(self.blend, torch.int32),
-            self._tensor(self.progress, torch.int32), pal=self.pal,
-            tmpl=tmpl, dither=dither)
-        fields = _field0_canvas(act, strip, tmpl, self.pal)
+            self._tensor(self.progress, torch.int32), pal=self.pal)
         self._last = (y, u, v)
         self.frame_counter += 1
         # end-of-field updates: fade countdown + slide animator
@@ -248,24 +236,6 @@ class OutputStage:
             self.pdm_state = torch.where(sv[:, None], state_in,
                                          self.pdm_state)
         return out
-
-
-def _field0_canvas(act, strip, tmpl, pal: bool):
-    """Field 0 of K4's parts as bytes: uint8[N, L, W], the line
-    templates with the active samples and the OSD strip laid in (the
-    packed int16 pairs are little-endian byte pairs).  The copies move
-    8-byte words: the line width and the active region's origin and
-    width are multiples of 8 bytes in both standards."""
-    _t, _d, g = C._packed_consts(pal)
-    N = act.shape[0]
-    L = tmpl.shape[0]
-    w64 = torch.int64
-    canvas = tmpl.view(w64)[None].expand(N, L, -1).clone()
-    x = g.active_x0() // 8
-    canvas[:, g.active_top:g.active_top + 192, x:x + 88] = \
-        act[:, 0].view(w64)
-    canvas[:, g.osd_top:g.osd_top + C.OSD_H, :] = strip.view(w64)
-    return canvas.view(torch.uint8)
 
 
 # the attributes stage_from_numpy carries: arrays, and the slide / last

@@ -21,7 +21,10 @@ K1F's output in chip_smoke's flat_kernels configuration, K3F
 random frames restored before every run; and K4
 (composite.synthesize_field_pair_parts, NTSC and PAL) on K3's
 presented planes of the I-heavy tick, as chip_smoke.py's phase 3 feeds
-it; K3P (mocomp.predict_plane for y, predict_chroma_pair for u and v)
+it, and the per-field output path on the same planes
+(runtime/output.OutputStage.synthesize, a steady field with no OSD:
+`FIELD_NTSC`, `FIELD_PAL`); K3P (mocomp.predict_plane for y,
+predict_chroma_pair for u and v)
 with the P-heavy tick's vectors onto seeded random reference planes
 (`K3P_A`, rule A, as chip_smoke.py times it) and
 mocomp.predict_plane_rows on chip_smoke.py's band, MB rows 3-8 with
@@ -251,6 +254,7 @@ def main() -> int:
     from espflix_tpu_torch.ops import mocomp as MC
     from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.runtime import chain as CH
+    from espflix_tpu_torch.runtime.output import OutputStage
     from espflix_tpu_torch.runtime.scheduler import bucket_policy
     from espflix_tpu_torch.runtime.workload import (bench_chunk,
                                                     bench_pictures)
@@ -370,6 +374,9 @@ def main() -> int:
                     CO.synthesize_field_pair_parts(
                         *comp_args, pal=pal, tmpl=c.templates,
                         dither=c.dither)
+                stage = OutputStage(N, pal=pal, device=dev)
+                runs[f"FIELD_{std}"] = lambda st=stage, p=pres: (
+                    st.synthesize(*p),)
     # K3P: y + u + v with the P-heavy tick's vectors (rule A), and the
     # band of MB rows 3-8 with random vectors past the edges (rule B)
     lanes = torch.arange(N, device=dev)

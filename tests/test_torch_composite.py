@@ -3,8 +3,9 @@
 Same numpy inputs go through composite_pallas.synthesize_field_pair_parts
 (interpret mode) and the port's synthesize_field_pair_parts, for NTSC
 and PAL: act, strip and chk (incl. the template base) exactly.  The
-tap helpers (assemble_canvas_packed + unpack_fields) must reproduce the
-XLA chain's full uint8 field pair (composite.synthesize_field_pair).
+canvas routine (field_canvas, the chain's taps) must reproduce the XLA
+chain's full uint8 field pair (composite.synthesize_field_pair) and the
+Pallas module's tap helpers (assemble_canvas_packed + unpack_fields).
 The flip animation's wraparound blit apply_hscroll must equal
 composite.apply_hscroll at the edge scrolls and at random ones.
 """
@@ -70,9 +71,9 @@ def test_parts_match_pallas_kernel(refs, pal, seed, i, name):
 def test_tap_canvas_matches_xla_field_pair(refs, pal):
     inp, _j, t = refs[(pal, 1)]
     tmpl = torch.from_numpy(TCO._packed_consts(pal)[0])
-    canvas = TCO.assemble_canvas_packed(
-        torch.from_numpy(t[0]), torch.from_numpy(t[1]), pal=pal, tmpl=tmpl)
-    fields = TCO.unpack_fields(canvas).numpy()
+    fields = TCO.field_canvas(
+        torch.from_numpy(t[0]), torch.from_numpy(t[1]), pal=pal,
+        tmpl=tmpl).numpy()
     exp = np.asarray(JCO.synthesize_field_pair(
         *[jnp.asarray(a) for a in inp], pal=pal))
     assert fields.dtype == np.uint8 and np.array_equal(fields, exp)
@@ -87,9 +88,9 @@ def test_assemble_and_unpack_match_jax(refs, pal):
     tmpl = TCO._packed_consts(pal)[0]
     jc = np.asarray(JCP.unpack_fields(JCP.assemble_canvas_packed(
         jnp.asarray(j[0]), jnp.asarray(j[1]), pal=pal)))
-    tc = TCO.unpack_fields(TCO.assemble_canvas_packed(
+    tc = TCO.field_canvas(
         torch.from_numpy(np.array(j[0])), torch.from_numpy(np.array(j[1])),
-        pal=pal, tmpl=torch.from_numpy(tmpl))).numpy()
+        pal=pal, tmpl=torch.from_numpy(tmpl)).numpy()
     assert np.array_equal(tc, jc)
 
 

@@ -10,7 +10,8 @@ budget (one step short of and exactly at what it needs) and a picture
 whose payload is cut short so the scan runs past the lane's words.
 Then models/mpeg1.decode_picture_batch (K1S + K2F + K3F plain forms)
 against the JAX decode_picture_batch over three pictures with the frame
-state carried: frames, parity, presented planes and info.  Last, the
+state carried: frames, parity, presented planes and info, sequential
+and slice-parallel (a scan row a slice).  Last, the
 port's Fleet(parser="device") against the JAX one on the same service
 (tests/torch_fleet.py): four lanes with three sessions and a corrupt
 picture, two ticks and a run_chunk of two -- every TickResult field,
@@ -133,6 +134,10 @@ def test_run_scan_matches_jax_past_the_words():
 def test_decode_picture_batch_matches_jax(seed):
     """Three pictures decoded in turn with the frame state carried,
     from random frames and parities; lane 2 idle on the second."""
+    _decode_both(seed, slice_parallel=False)
+
+
+def _decode_both(seed, slice_parallel):
     pics = _pictures(seed)
     N = 3
     mbw, mbh = pics[0].seq.mb_width, pics[0].seq.mb_height
@@ -150,11 +155,13 @@ def test_decode_picture_batch_matches_jax(seed):
         b = TM.make_picture_batch(sel, words_per_lane=wpl, max_slices=mbh)
         jf, jp, ji = JM.decode_picture_batch(
             *(jnp.asarray(b[k]) for k in TM.PICTURE_KEYS), jf,
-            mb_width=mbw, mb_height=mbh, max_steps=wpl * 32)
+            mb_width=mbw, mb_height=mbh, max_steps=wpl * 32,
+            slice_parallel=slice_parallel)
         x = TM.xs_to_torch({k: b[k] for k in TM.PICTURE_KEYS}, "cpu")
         tf, tp, ti = TM.decode_picture_batch(
             *x.values(), tf, mb_width=mbw, mb_height=mbh,
-            max_steps=wpl * 32, tables=tables)
+            max_steps=wpl * 32, slice_parallel=slice_parallel,
+            tables=tables)
         for k in ("y", "u", "v", "parity"):
             assert np.array_equal(tf[k].numpy(), np.asarray(jf[k])), (t, k)
         for k in "yuv":
@@ -166,9 +173,10 @@ def test_decode_picture_batch_matches_jax(seed):
 
 
 def test_slice_parallel_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        TM.decode_picture_impl(*[None] * 11, mb_width=1, mb_height=1,
-                               max_steps=1, slice_parallel=True)
+    """slice_parallel=True (one scan row a slice; once refused by the
+    port) decodes as the JAX one over the same three pictures: frames,
+    parity, planes, and error / ok / iters with their dtypes."""
+    _decode_both(4, slice_parallel=True)
 
 
 @pytest.mark.gpu

@@ -69,7 +69,11 @@ def test_pump_checksum_and_underruns():
         pump.start()
         pump.push(np.full((1, 2, 4, 8), 7, np.uint8),
                   np.full((1, 16), 70000, np.int32))
-        time.sleep(0.06)
+        # the consumer's own clock counts the underruns: wait for them
+        # (a fixed sleep saw too few wakeups on a loaded machine)
+        deadline = time.monotonic() + 30
+        while pump.stats.underrun_ticks < 3 and time.monotonic() < deadline:
+            time.sleep(0.004)
         pumps.append(pump.finish())
     sj, st = pumps
     assert st.checksum == sj.checksum == 7 * 64 + 70000 * 16

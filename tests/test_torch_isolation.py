@@ -14,7 +14,11 @@
     and hbm_accounting's torch form against the JAX one; and the
     encoder, muxer, indexer, SBC coder, demuxer, index, clock, OSD
     renderer, onboarding GUI, menu, trace viewer, log formatter and
-    config giving identical output for a seed.
+    config giving identical output for a seed;
+  * the counterpart inventory: every public top-level name of a module
+    of espflix_tpu/ exists in the port's module at the same path, apart
+    from MODULES_EXEMPT / NAMES_EXEMPT, each with its reason (ROADMAP
+    carries the same list).
 """
 
 import ast
@@ -396,3 +400,107 @@ def test_parallel_subpackage_is_covered():
     assert {"espflix_tpu_torch.parallel",
             "espflix_tpu_torch.parallel.mesh"} <= set(PORT_MODULES)
     assert "espflix_tpu_torch/parallel/mesh.py" in PORT_FILES
+
+
+# ---- the counterpart inventory --------------------------------------------
+
+_IN_KERNELS = "a Pallas kernel module: its kernels are CUDA kernels in " \
+    "espflix_tpu_torch/csrc/ (PERF.md section 6)"
+_BLOCKS = "a building block that the port's plain forms compute under " \
+    "another name"
+_DENSIFY = "the one-hot densify of the emission log, which K1 makes " \
+    "unnecessary: it stores straight into the dense buffers"
+
+# modules of espflix_tpu/ with no counterpart at the same path, and why
+MODULES_EXEMPT = {
+    "ops/composite_pallas.py": _IN_KERNELS,
+    "ops/delta_sigma_pallas.py": _IN_KERNELS,
+    "ops/idct_pallas.py": _IN_KERNELS,
+    "ops/mocomp_pallas.py": _IN_KERNELS,
+    "ops/vlc_scan_pallas.py": _IN_KERNELS,
+    "tools/perf_stages.py": "the TPU selector variants' timing tool: it "
+    "waits for the port's bench (ROADMAP Queue 1 item 1)",
+}
+# public names of a module with a counterpart that the counterpart lacks
+NAMES_EXEMPT = {
+    "ops/mocomp.py": {
+        "predict_plane_mxu": "a TPU selector variant (ROADMAP: the "
+        "selector zoo is not ported; K3P is the one kernel)",
+        "predict_plane_blocks": "a TPU selector variant (as "
+        "predict_plane_mxu)"},
+    "parallel/mesh.py": {
+        "lane_sharding": "JAX-only: a jax.sharding.NamedSharding; the "
+        "port's mesh holds per-shard tensors"},
+    "models/mpeg1.py": {
+        "dense_compose_jit": "JAX-only: jax.jit of dense_compose"},
+    "ops/vlc_scan.py": {
+        "make_scan_step": "JAX-only: the XLA while loop's step builder "
+        "(the port's scan_step and K1 / K1F / K1S)",
+        "scanner_constants": "JAX-only: make_scan_step's constants"},
+    "ops/idct.py": {
+        name: _BLOCKS + " (block_residuals_T / block_residuals_flat and "
+        "their plain forms)" for name in (
+            "idct_8x8", "idct_8x8_T", "idct_8x8_flat", "dequant_levels",
+            "dequant_levels_T", "block_residuals")},
+    "ops/sbc_ops.py": {
+        "synthesis_step": _BLOCKS + " (models/sbc._synthesis_conv, K6)"},
+    "ops/scan_dense.py": {
+        name: _DENSIFY for name in ("assemble_dense", "assemble_dense_T",
+                                    "log_to_dense_rows")},
+}
+
+
+def _top_names(path: pathlib.Path, imported: bool) -> set:
+    """The public names a module binds at its top level: functions,
+    classes and assigned names, and with `imported` the names it
+    imports (a re-export counts)."""
+    out = set()
+    stack = list(ast.parse(path.read_text()).body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            out.update(n.id for t in targets for n in ast.walk(t)
+                       if isinstance(n, ast.Name))
+        elif isinstance(node, (ast.Import, ast.ImportFrom)) and imported:
+            out.update((a.asname or a.name).split(".")[0]
+                       for a in node.names)
+        elif isinstance(node, (ast.If, ast.Try)):
+            stack += node.body + node.orelse + getattr(node, "finalbody", [])
+            for h in getattr(node, "handlers", []):
+                stack += h.body
+    return {n for n in out if not n.startswith("_")}
+
+
+JAX_MODULES = sorted(p.relative_to(REPO / "espflix_tpu").as_posix()
+                     for p in (REPO / "espflix_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", JAX_MODULES)
+def test_counterpart_has_every_public_name(path):
+    """Every public top-level name of a JAX module exists in the port's
+    module at the same path (defined or re-exported), apart from the
+    exemptions; a JAX module without a counterpart is exempt as a
+    whole.  A stale exemption fails too."""
+    port = PORT / path
+    if path in MODULES_EXEMPT:
+        assert not port.exists(), f"{path} is ported: drop its exemption"
+        return
+    assert port.exists(), f"{path} has no counterpart in the port"
+    want = _top_names(REPO / "espflix_tpu" / path, imported=False)
+    missing = want - _top_names(port, imported=True)
+    exempt = NAMES_EXEMPT.get(path, {})
+    assert set(exempt) <= want, f"{path}: exempt names the JAX module " \
+        f"lacks: {sorted(set(exempt) - want)}"
+    assert missing == set(exempt), \
+        f"{path}: missing {sorted(missing - set(exempt))}, exempt but " \
+        f"present {sorted(set(exempt) - missing)}"
+
+
+def test_exemptions_name_real_modules():
+    for path in list(MODULES_EXEMPT) + list(NAMES_EXEMPT):
+        assert path in JAX_MODULES, path

@@ -5,14 +5,13 @@ The card runs the device parser's sequential scan as one thread per
 slices' step counts (vlc_scan.resolve_slices) and scans again, in order,
 the lanes the split cannot reproduce.  Here the same split is composed
 from plain pieces: vlc_scan.scan_slices_torch (every slice scanned
-alone), resolve_slices, the regular lanes' slices merged over the MB
-ranges they emitted into, and run_scan_torch over the lanes marked for
-redo.  It must equal the JAX package's vlc_scan.run_scan (the XLA while
-loop) and the port's lockstep run_scan_torch exactly -- coeffs, recs,
-nfinal, err and iters -- on clean multi-slice I and P pictures with an
-idle lane, a corrupt slice in the middle of a picture, budget cuts
-inside a later slice, a payload cut short and two slices claiming one
-MB row.  Last, the compact LUT the scan kernels keep in shared memory
+alone, its emissions stored into its lane's buffers), resolve_slices,
+and run_scan_torch over the lanes marked for redo.  It must equal the
+JAX package's vlc_scan.run_scan (the XLA while loop) and the port's
+lockstep run_scan_torch exactly -- coeffs, recs, nfinal, err and iters
+-- on clean multi-slice I and P pictures with an idle lane, a corrupt
+slice in the middle of a picture, budget cuts inside a later slice, a
+payload cut short and two slices claiming one MB row.  Last, the compact LUT the scan kernels keep in shared memory
 expands back to the unified LUT, and follows the unified LUT it is
 gathered from.
 """
@@ -77,24 +76,10 @@ def split_scan(b, budget):
     """The card's split from plain pieces; returns the scan's outputs
     and the redo mask."""
     x, kw = _inputs(b)
-    pc, pr, pn, steps, end, lo, hi = TVS.scan_slices_torch(
+    coeffs, recs, nfinal, steps, end, lo, hi = TVS.scan_slices_torch(
         *x, budget=budget, **kw)
     err, lane_steps, redo = TVS.resolve_slices(steps, end, lo, hi, x[3],
                                                budget)
-    N, S = steps.shape
-    mbc = b["mb_width"] * b["mb_height"]
-    coeffs = torch.zeros((N, mbc * 384), dtype=torch.int16)
-    recs = torch.zeros((N, mbc), dtype=torch.int32)
-    nfinal = torch.zeros((N, mbc * 6), dtype=torch.int32)
-    for lane in range(N):
-        for k in range(S):
-            a, z = int(lo[lane, k]), int(hi[lane, k]) + 1
-            if redo[lane] or a >= z:
-                continue
-            p = lane * S + k
-            recs[lane, a:z] = pr[p, a:z]
-            nfinal[lane, a * 6:z * 6] = pn[p, a * 6:z * 6]
-            coeffs[lane, a * 384:z * 384] = pc[p, a * 384:z * 384]
     lanes = torch.nonzero(redo)[:, 0]
     if len(lanes):
         c, r, n, _e, _i = TVS.run_scan_torch(
