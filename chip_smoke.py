@@ -89,6 +89,25 @@ O. the validation path against the C oracle (tools/oracle.py), at the
    lists of 8-15 frames equal to SbcOracle on every lane, and
    ops/delta_sigma.modulate_spec (K5), two calls of 256 samples with the
    state carried, equal to oracle.pdm_modulate on every lane;
+B. the port's bench (espflix_tpu_torch/tools/bench.py): each route in
+   process at 16 lanes x 2 pictures -- pallas full (the chain), the
+   same scrolled, pallas decode (K1-K3), device full (K1S, K2F, K3F,
+   then K4, K6, K5) and hybrid decode (the host tokenizer, K2F, K3F) --
+   one chunk on the card with every kernel of the route launched and its
+   checksum equal to the same builder's chunk through the plain forms
+   on the CPU; then `python -m espflix_tpu_torch.tools.bench` in
+   subprocesses: the defaults (1,024 lanes, full, NTSC, mixed, pallas,
+   2 reps, the realtime probe), --scrolled, --pipeline device and
+   --pipeline hybrid --stage decode (the last three without the
+   probe), each exiting 0 with backend cuda and the route asked for;
+   their metric lines and stderr (the probe's candidates, the peak
+   device memory) are printed;
+S. the port's stage timer (espflix_tpu_torch/tools/perf_stages.py):
+   every stage once at 64 lanes on the card (K2, K3, K3F, K3P, K4, K5
+   and K6 launched) equal to the same stage through the plain forms on
+   the card; then `python -m espflix_tpu_torch.tools.perf_stages
+   --lanes 1024 --iters 8 --reps 3 --json` over every stage, its times
+   printed a stage a line;
 5. serving A: serve_scenario's full stage over the local HTTP Range
    server (min(256, --lanes) lanes, 16 ticks in chunks of 4, 2 titles
    of 4 GOPs, two injected faults, a snapshot at tick 8 restored into a
@@ -173,8 +192,8 @@ import time
 
 
 # chain ticks compared with the plain path on the card: the plain PDM
-# and the plain scan take seconds a tick at 1,024 lanes
-PLAIN_TICKS = 6
+# and the plain scan take ~12-16 s a tick at 1,024 lanes
+PLAIN_TICKS = 3
 # an H100 SXM's HBM3 rate (NVIDIA's data sheet), for the bytes bound
 HBM_BPS = 3.35e12
 # latency of one dependent 32-bit integer operation, in SM clock
@@ -295,6 +314,8 @@ def plain_forms():
              (MC, "predict_compose_put_flat",
               MC.predict_compose_put_flat_torch),
              (MC, "predict_plane_rows", MC.predict_plane_rows_torch),
+             (MC, "predict_plane", MC.predict_plane_torch),
+             (MC, "predict_chroma_pair", MC.predict_chroma_pair_torch),
              (dsbc, "decode_frames_batched",
               dsbc.decode_frames_batched_torch),
              (VS, "run_scan", VS.run_scan_torch),
@@ -1821,6 +1842,129 @@ def play_phase(smi: str, frames: int = 8):
         f"{time.perf_counter() - t0:.1f} s ({r.stdout.strip()}) | {smi}")
 
 
+def run_tool(module: str, argv: list, timeout: int = 900):
+    """python -m <module> <argv> from the checkout's root: (its last
+    stdout line as JSON, its stderr lines, seconds); raises on a non-zero
+    exit."""
+    import os
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *argv],
+                       capture_output=True, text=True, cwd=root,
+                       env=dict(os.environ, PYTHONPATH=root),
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{module} {argv}: exit {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return (json.loads(r.stdout.strip().splitlines()[-1]),
+            r.stderr.strip().splitlines(), time.perf_counter() - t0)
+
+
+# phase B's bench runs: label, arguments, the route the line must name
+BENCH_RUNS = (("defaults", [], "pallas"),
+              ("scrolled", ["--scrolled", "--no-realtime"], "pallas"),
+              ("device", ["--pipeline", "device", "--no-realtime"],
+               "device"),
+              ("hybrid", ["--pipeline", "hybrid", "--stage", "decode",
+                          "--no-realtime"], "hybrid"))
+# the kernels each in-process route must launch
+ROUTE_CHECKS = (
+    ("pallas full", ["--pipeline", "pallas"], CHAIN_KERNELS),
+    ("pallas full scrolled", ["--pipeline", "pallas", "--scrolled"],
+     CHAIN_KERNELS),
+    ("pallas decode", ["--pipeline", "pallas", "--stage", "decode"],
+     ("K1_slice_scan_dense", "K2_dequant_idct", "K3_predict_compose_put")),
+    ("device full", ["--pipeline", "device"],
+     ("K1S_slice_scan_seq", "K2F_dequant_idct_flat",
+      "K3F_predict_compose_put_flat", "K4_composite_field_pair",
+      "K6_sbc_decode", "K5_pdm")),
+    ("hybrid decode", ["--pipeline", "hybrid", "--stage", "decode"],
+     ("K2F_dequant_idct_flat", "K3F_predict_compose_put_flat")))
+
+
+def bench_phase(dev, smi: str, lanes: int = 16) -> dict:
+    """B: the port's bench (espflix_tpu_torch/tools/bench.py).  First
+    each route in-process at `lanes` lanes x 2 pictures: one chunk on
+    the card, every kernel of the route launched, its checksum equal to
+    the same builder's chunk on the CPU (the plain forms).  Then the
+    bench as a user runs it, in subprocesses (BENCH_RUNS): exit 0, the
+    line's backend cuda and its pipeline the route asked for.  Returns
+    {label: the bench's last line}."""
+    import torch
+    from espflix_tpu_torch.tools import bench as TB
+    for label, argv, names in ROUTE_CHECKS:
+        args = TB.parse_args(["--pictures", "2", *argv])
+        got = []
+        for device in (dev, torch.device("cpu")):
+            route = TB.make_builders(args, lanes, device)[args.pipeline]()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                reset_counts()
+            t0 = time.perf_counter()
+            _state, chk = route.chunk(route.init())
+            got.append(int(chk))
+            if device.type == "cuda":
+                counts = read_counts(f"bench {label}", names)
+            else:
+                plain_s = time.perf_counter() - t0
+        if got[0] != got[1]:
+            raise AssertionError(f"bench {label}: card checksum {got[0]} "
+                                 f"!= plain {got[1]}")
+        log(f"[bench {label}] {lanes} lanes x 2 pictures: card checksum == "
+            f"plain ({got[0]}; plain on the CPU {plain_s:.1f} s), "
+            f"launches {counts}")
+    lines = {}
+    for label, argv, pipeline in BENCH_RUNS:
+        line, err, secs = run_tool("espflix_tpu_torch.tools.bench",
+                                   ["--verbose", *argv], timeout=600)
+        got = (line.get("backend"), line.get("pipeline"))
+        if got != ("cuda", pipeline):
+            raise AssertionError(f"bench {label}: backend, pipeline {got} "
+                                 f"(want cuda, {pipeline})")
+        for e in err:
+            log(f"[bench {label}] stderr: {e}")
+        log(f"[bench {label}] {secs:.1f} s: {json.dumps(line)} | {smi}")
+        lines[label] = line
+    return lines
+
+
+def stages_phase(dev, smi: str, lanes: int = 64) -> dict:
+    """S: the port's stage timer (espflix_tpu_torch/tools/perf_stages.py).
+    Every stage once at `lanes` lanes on the card (every kernel it
+    stands for launched) and through the plain forms on the card: equal
+    checksums.  Then the timer as a user runs it, in a subprocess, at
+    1,024 lanes over every stage.  Returns its JSON line."""
+    from espflix_tpu_torch.tools import perf_stages as TP
+    d = TP.build_inputs(lanes, device=dev)
+    stages = TP.make_stages(d)
+    reset_counts()
+    card = {name: int(fn(d, 0)) for name, fn in stages.items()}
+    counts = read_counts("perf_stages", (
+        "K2_dequant_idct", "K3_predict_compose_put",
+        "K3F_predict_compose_put_flat", "K3P_predict",
+        "K4_composite_field_pair", "K5_pdm", "K6_sbc_decode"))
+    with plain_forms():
+        plain = {name: int(fn(d, 0)) for name, fn in stages.items()}
+    bad = [n for n in stages if card[n] != plain[n]]
+    if bad:
+        raise AssertionError(f"perf_stages: card != plain for {bad}")
+    log(f"[stages] {len(stages)} stages at {lanes} lanes: card checksums "
+        f"== plain forms on the card; launches {counts}")
+    line, _err, secs = run_tool("espflix_tpu_torch.tools.perf_stages",
+                                ["--lanes", "1024", "--iters", "8",
+                                 "--reps", "3", "--json"])
+    if set(line["stages"]) != set(stages) or line["backend"] != "cuda":
+        raise AssertionError(f"perf_stages: {sorted(line['stages'])} on "
+                             f"{line['backend']}")
+    for name, st in line["stages"].items():
+        log(f"[stages] {name:>24}: {st['ms_min']:8.3f} ms min "
+            f"{st['ms_med']:8.3f} med  ({TP.STAGE_KERNELS[name]})")
+    log(f"[stages] perf_stages --lanes 1024 in {secs:.1f} s: "
+        f"{json.dumps(line)} | {smi}")
+    return line
+
+
 def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
                  big_lanes: int = 1024, ticks: int = 8,
                  big_ticks: int = 16) -> dict:
@@ -2511,9 +2655,9 @@ def main() -> int:
 
     # ---- workload --------------------------------------------------------
     t0 = time.perf_counter()
-    xs_np, kw = bench_chunk(args.lanes)
+    xs_np, kw, _ = bench_chunk(args.lanes)
     bench_ticks, wpl = bench_pictures(args.lanes)
-    xs_np_w, kw_w = bench_chunk(args.lanes, win=True)
+    xs_np_w, kw_w, _ = bench_chunk(args.lanes, win=True)
     xs_np = {k: v[:args.ticks] for k, v in xs_np.items()}
     xs_np_w = {k: v[:args.ticks] for k, v in xs_np_w.items()}
     log(f"[workload] {args.lanes} lanes x {args.ticks} ticks, "
@@ -2814,6 +2958,16 @@ def main() -> int:
         if k["name"] in phase_o:
             k["phase_o"] = phase_o[k["name"]]
     log(f"[time] phase O done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # ---- B, S. the port's bench and stage timer ------------------------
+    t0 = time.perf_counter()
+    bench_phase(dev, smi)
+    log(f"[time] phase B done at {time.perf_counter() - t_start:.1f} s "
+        f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    stages_phase(dev, smi)
+    log(f"[time] phase S done at {time.perf_counter() - t_start:.1f} s "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # ---- 5, 6. serving: one service behind the local HTTP server -------

@@ -58,6 +58,80 @@ def _butterfly_parts(c, final):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's building blocks (espflix_tpu.ops.idct, idct.py:26-222)
+# with its signatures: int32 in, int32 out, plain torch ops
+# ---------------------------------------------------------------------------
+
+def dequant_levels(levels, intra, qscale, qmat):
+    """Exact dequant (idct.py:26-62): levels int32[..., 64] raw levels
+    (raster positions, intra DC absolute at position 0); intra
+    bool[...]; qscale int32[...]; qmat int32[..., 64] (intra or
+    non-intra selected).  Returns int32[..., 64]: dequant *
+    SCALE_DCT_Q, intra DC as dc << 8."""
+    intra_b = intra[..., None]
+    v = levels * 2
+    v = torch.where(intra_b, v, v + torch.sign(v))
+    num = v * qscale[..., None] * qmat
+    q = torch.where(num < 0, -((-num) >> 4), num >> 4)
+    # an even q drops to the next-lower odd magnitude; a q truncated to
+    # 0 becomes +1 only at a coded position (level != 0)
+    odd = torch.where(q > 0, q - 1, torch.where(
+        q < 0, q + 1, (levels != 0).to(q.dtype)))
+    q = torch.where((q & 1) == 0, odd, q).clamp(-2048, 2047)
+    b = q * scale_dct_q(levels.device)
+    pos0 = torch.arange(64, device=levels.device) == 0
+    return torch.where(intra_b & pos0, levels << 8, b)
+
+
+def idct_8x8(b):
+    """Exact fixed-point IDCT over int32[..., 8, 8] (idct.py:65-94):
+    the column pass unshifted, then the row pass with (+128) >> 8."""
+    rows = _butterfly_parts([b[..., i, :] for i in range(8)], final=False)
+    cols = torch.stack(rows, dim=-2).transpose(-1, -2)
+    out = _butterfly_parts([cols[..., i, :] for i in range(8)], final=True)
+    return torch.stack(out, dim=-2).transpose(-1, -2)
+
+
+def idct_8x8_flat(b64):
+    """idct_8x8 over int32[..., 64], raster order in and out
+    (idct.py:128-143)."""
+    rows = _butterfly_parts([b64[..., 8 * i:8 * i + 8] for i in range(8)],
+                            final=False)
+    t = torch.cat(rows, dim=-1)                     # p = 8r + j
+    o = _butterfly_parts([t[..., j::8] for j in range(8)], final=True)
+    return torch.stack(o, dim=-1).reshape(*b64.shape[:-1], 64)
+
+
+def dequant_levels_T(levels_T, intra, qscale, qmat_T):
+    """dequant_levels on the [N, 64, B] layout (idct.py:146-167):
+    levels_T int32[N, 64, B]; intra bool[N, B]; qscale int32[N, B];
+    qmat_T int32[N, 64, B] (or broadcastable).  Returns int32[N, 64,
+    B]."""
+    b = dequant_levels(levels_T.transpose(1, 2), intra, qscale,
+                       qmat_T.transpose(-1, -2))
+    return b.transpose(1, 2)
+
+
+def idct_8x8_T(bT):
+    """Exact IDCT over int32[N, 64, B], raster positions on axis 1
+    (idct.py:170-187)."""
+    return idct_8x8_flat(bT.transpose(1, 2)).transpose(1, 2)
+
+
+def block_residuals(levels64, intra, qscale, qmat, nfinal):
+    """levels int32[..., 64] -> spatial residuals int32[..., 8, 8]
+    (idct.py:207-222): nfinal int32[...] is the scanner's final
+    coefficient count; 0 gives a zero block, 1 on a non-intra block the
+    DC shortcut broadcast(b0 >> 8) instead of the IDCT."""
+    b = dequant_levels(levels64, intra, qscale, qmat)
+    full = idct_8x8(b.reshape(*b.shape[:-1], 8, 8))
+    dc = (b[..., 0] >> 8)[..., None, None].expand(full.shape)
+    shortcut = ((nfinal == 1) & ~intra)[..., None, None]
+    out = torch.where(shortcut, dc, full)
+    return torch.where((nfinal == 0)[..., None, None], 0, out)
+
+
 def block_residuals_T_torch(coeffs_T, intra_bl, qs_bl, intra_q,
                             non_intra_q, nfinal, scale_dct=None):
     """Plain form of K2 (same arguments and result as

@@ -162,3 +162,24 @@ def iquant_exact(raw, level, scale):
     r1 = a - q1 * d
     q = (q1 << s2) + torch.div(r1 << s2, d, rounding_mode="floor")
     return q - (one << scale)
+
+
+def synthesis_step(hist, src):
+    """One block of the synthesis filterbank (sbc_ops.py:141-159): hist
+    int32[..., 10, 16] (V of the 10 previous blocks, newest first), src
+    int32[..., 8] subband samples.  Returns (new_hist, pcm int32[...,
+    8]).  Every product and sum wraps in int32 (the sums as repeated
+    int32 adds: torch.sum would widen to int64)."""
+    syn = device_table("SYN_8", src.device)          # [16, 8]
+    proto = device_table("PROTO_8", src.device)      # [8, 10]
+    V = src[..., 0:1] * syn[:, 0]
+    for s in range(1, 8):
+        V = V + src[..., s:s + 1] * syn[:, s]
+    hist = torch.cat([(V >> 15)[..., None, :], hist[..., :-1, :]], dim=-2)
+    # out[i] = sum_j hist[2j, i] * proto[i, 2j]
+    #          + hist[2j + 1, (i + 8) & 15] * proto[i, 2j + 1]
+    acc = hist[..., 0, :8] * proto[:, 0]
+    for j in range(1, 10):
+        half = hist[..., j, 8:] if j & 1 else hist[..., j, :8]
+        acc = acc + half * proto[:, j]
+    return hist, (acc >> 15).clamp(-0x7FFF, 0x7FFF)

@@ -11,7 +11,8 @@ vlc_scan_pallas.run_scan_pallas_bucketed_dense with transposed=True):
 
   * ``run_scan_bucketed_dense_torch``: every row steps in lockstep with
     masks, logs one (index, value) emission per row per step, and the
-    log is densified afterwards (ops/scan_dense.densify_log);
+    log is densified afterwards (ops/scan_dense.log_to_dense_rows and
+    assemble_dense_T, as in the JAX package);
   * K1 (csrc/scan.cu): one CUDA thread per scan row runs the same FSM
     serially and stores straight into the dense buffers.
 
@@ -640,7 +641,7 @@ def run_scan_bucketed_dense_torch(
     run_scan_bucketed_dense."""
     _check_rows(words, start_bits, rows, alive, pic_type, full_pel,
                 r_size, lane_of_row, perm, n_lanes, mb_height, long_rows)
-    from espflix_tpu_torch.ops.scan_dense import densify_log
+    from espflix_tpu_torch.ops import scan_dense as SD
     NS = words.shape[0]
     dev = words.device
     mb_count = mb_width * mb_height
@@ -668,9 +669,12 @@ def run_scan_bucketed_dense_torch(
         log_idx = torch.full((1, NS), trash, dtype=torch.int32,
                              device=dev)
         log_val = torch.zeros((1, NS), dtype=torch.int32, device=dev)
-    coeffs_T, recs, nfinal, dropped = densify_log(
-        log_idx, log_val, rows, lane_of_row, perm, n_lanes=n_lanes,
-        mb_width=mb_width, mb_height=mb_height)
+    coef_rows, aux_rows, dropped = SD.log_to_dense_rows(
+        log_idx, log_val, rows * mb_width, mb_width=mb_width,
+        mb_count=mb_count, transposed=True)
+    coeffs_T, recs, nfinal = SD.assemble_dense_T(
+        coef_rows, aux_rows, perm, n_lanes=n_lanes, mb_width=mb_width,
+        mb_height=mb_height)
     bad = st["error"] | (st["state"] != ST_DONE) | dropped
     err = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
     err.index_put_((lane_of_row.long(),), bad.to(torch.int32),

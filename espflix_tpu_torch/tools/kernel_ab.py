@@ -260,7 +260,7 @@ def main() -> int:
                                                     bench_pictures)
     build.library()
 
-    xs_np, kw = bench_chunk(args.lanes)
+    xs_np, kw, _ = bench_chunk(args.lanes)
     bench_ticks, wpl = bench_pictures(args.lanes)
     n_i = ((xs_np["pic_type"] == 1) & (xs_np["alive"] == 1)).sum(axis=1)
     k_i = int(n_i.argmax())

@@ -32,8 +32,13 @@ LANES, TICKS = 4, 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+# the port's unscrolled outs by window mode, kept from the fixture's run
+# for the scrolled test (the port is deterministic)
+_PORT_RUNS = {}
+
+
 def _run_both(win: bool, scrolled: bool = False, jax_side: bool = True):
-    xs, kw = bench_chunk(LANES, n_pictures=TICKS, win=win, starve_p=0.3,
+    xs, kw, _ = bench_chunk(LANES, n_pictures=TICKS, win=win, starve_p=0.3,
                          long_rows=3 * 12)
     tap_idx = np.array([2], np.int32)
     frames = {k: np.asarray(v) for k, v in
@@ -77,7 +82,9 @@ def _run_both(win: bool, scrolled: bool = False, jax_side: bool = True):
         torch.from_numpy(tap_idx), t_slide, tap=1, **kw)
     fr2, sbc2, ds2 = TCH.state_to_numpy(*t[:3])
     outs = {k: v.numpy() for k, v in t[3].items()}
-    return j, (fr2, sbc2, ds2, outs), xs
+    if not scrolled:
+        _PORT_RUNS[win] = (fr2, sbc2, ds2, outs)
+    return j, (fr2, sbc2, ds2, outs), xs, (kw, frames, sbc, ds)
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["win0", "win"])
@@ -91,7 +98,7 @@ OUT_KEYS = ("err", "audio_err", "field_sum", "pdm_sum", "y", "u", "v",
 
 @pytest.mark.parametrize("key", OUT_KEYS)
 def test_outs_match(both, key):
-    j, t, _xs = both
+    j, t, _xs, _start = both
     a, b = t[3][key], j[3][key]
     assert a.dtype == b.dtype and a.shape == b.shape, key
     assert np.array_equal(a, b), key
@@ -99,13 +106,13 @@ def test_outs_match(both, key):
 
 @pytest.mark.parametrize("key", ["y", "u", "v", "parity"])
 def test_frame_carry_matches(both, key):
-    j, t, _xs = both
+    j, t, _xs, _start = both
     assert t[0][key].dtype == j[0][key].dtype
     assert np.array_equal(t[0][key], j[0][key])
 
 
 def test_audio_carries_match(both):
-    j, t, _xs = both
+    j, t, _xs, _start = both
     assert np.array_equal(t[1], j[1]) and t[1].dtype == j[1].dtype
     assert np.array_equal(t[2], j[2]) and t[2].dtype == j[2].dtype
 
@@ -113,12 +120,37 @@ def test_audio_carries_match(both):
 def test_chunk_exercises_the_tick(both):
     """Not a degenerate chunk: decoded video, I and P pictures, live,
     beeping and starved audio lanes, no lane errors."""
-    _j, t, xs = both
+    _j, t, xs, _start = both
     assert not t[3]["err"].any()
     assert set(np.unique(xs["pic_type"][xs["alive"] == 1])) == {1, 2}
     assert (xs["beep_left"] > 0).any() and xs["starved"].any()
     assert (t[3]["tap_pdm"] != 0xAAAA).any()
     assert t[3]["y"].std() > 0
+
+
+def test_bench_chain_checksum_matches_jax(both):
+    """The port's bench (tools/bench.py, --stage full, pallas): bench.py's
+    checksum (ysum + field_sum + pdm_sum + err, int32 wraparound,
+    bench.py:346-349) of the port's outs equals the JAX chain's, and with
+    host row windows, as the bench runs, the bench's own chunk on this
+    file's inputs and start state gives it too."""
+    from espflix_tpu_torch.tools import bench as TB
+    j, t, xs, (kw, frames, sbc, ds) = both
+
+    def formula(outs):
+        y = outs["y"].astype(np.int64).sum(axis=(2, 3))
+        total = (y.sum() + outs["field_sum"].astype(np.int64).sum()
+                 + outs["pdm_sum"].astype(np.int64).sum()
+                 + outs["err"].sum())
+        return int((total + 2**31) % 2**32 - 2**31)
+    assert formula(t[3]) == formula(j[3])
+    if kw["win"]:
+        return
+    fr_t, sbc_t, ds_t = TCH.state_from_numpy(frames, sbc, ds, "cpu")
+    *_state, chk = TB.chain_chunk(TCH.xs_to_torch(xs, "cpu"), fr_t, sbc_t,
+                                  ds_t, None, kw)
+    assert chk.dtype == torch.int32 and int(chk) == formula(j[3])
+    assert np.array_equal(TCH.state_to_numpy(*_state)[0]["y"], j[0]["y"])
 
 
 def test_scrolled_chain_not_ported():
@@ -127,7 +159,7 @@ def test_scrolled_chain_not_ported():
     scrolled run, the tapped mid-slide lane's fields differ from an
     unscrolled run, and the presented planes stay unscrolled."""
     for win in (False, True):
-        j, t, _xs = _run_both(win, scrolled=True)
+        j, t, _xs, _start = _run_both(win, scrolled=True)
         for key in OUT_KEYS:
             a, b = t[3][key], j[3][key]
             assert a.dtype == b.dtype and a.shape == b.shape, key
@@ -135,7 +167,7 @@ def test_scrolled_chain_not_ported():
         for key in ("y", "u", "v", "parity"):
             assert np.array_equal(t[0][key], j[0][key]), (win, key)
         assert np.array_equal(t[1], j[1]) and np.array_equal(t[2], j[2])
-        _j0, t0, _ = _run_both(win, jax_side=False)
+        t0 = _PORT_RUNS.get(win) or _run_both(win, jax_side=False)[1]
         assert np.array_equal(t[3]["y"], t0[3]["y"])
         assert not np.array_equal(t[3]["tap_fields"], t0[3]["tap_fields"])
         assert not np.array_equal(t[3]["field_sum"][:, 0],
@@ -158,7 +190,7 @@ def test_port_imports_no_jax(tmp_path):
         "from espflix_tpu_torch.runtime import scheduler, player, output\n"
         "from espflix_tpu_torch.tools import serve_scenario as SS\n"
         "import espflix_tpu_torch.build\n"
-        "xs, kw = bench_chunk(3, n_pictures=2, long_rows=35)\n"
+        "xs, kw, _ = bench_chunk(3, n_pictures=2, long_rows=35)\n"
         "xs = {k: v[:1] for k, v in xs.items()}\n"
         "fr = M.init_frame_state(3, 352, 192, 'cpu')\n"
         "out = C.run_full_chunk(C.xs_to_torch(xs, 'cpu'), fr,\n"

@@ -29,6 +29,8 @@ import pathlib
 import re
 import subprocess
 import sys
+import types
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -329,11 +331,19 @@ def _behaviours():
             [f"title {k}" for k in range(12)], 10)
 
     def tracecat(pkg):
+        # EventLog.log stamps events with the events module's
+        # time.monotonic(), and format_events prints times relative to
+        # the first event to 0.01 ms: a fixed clock keeps both
+        # packages' timelines exact on any host
         ev = mod(pkg, "runtime.events")
         tc = mod(pkg, "tools.tracecat")
+        ticks = iter([100.0 + k * 0.25e-3 for k in range(4)])
+        clock = types.SimpleNamespace(monotonic=lambda: next(ticks))
         log = ev.EventLog()
-        for k in range(4):
-            log.log(ev.Ev.DECODE_BATCH if k % 2 else ev.Ev.LANE_ERROR, k, k)
+        with mock.patch.object(ev, "time", clock):
+            for k in range(4):
+                log.log(ev.Ev.DECODE_BATCH if k % 2 else ev.Ev.LANE_ERROR,
+                        k, k)
         docs = [dict(t=k * 0.5, ev=e.ev.name, lane=e.lane, value=e.value)
                 for k, e in enumerate(log.dump())]
         return tc.format_events(log), tc.format_counts(log), \
@@ -406,10 +416,6 @@ def test_parallel_subpackage_is_covered():
 
 _IN_KERNELS = "a Pallas kernel module: its kernels are CUDA kernels in " \
     "espflix_tpu_torch/csrc/ (PERF.md section 6)"
-_BLOCKS = "a building block that the port's plain forms compute under " \
-    "another name"
-_DENSIFY = "the one-hot densify of the emission log, which K1 makes " \
-    "unnecessary: it stores straight into the dense buffers"
 
 # modules of espflix_tpu/ with no counterpart at the same path, and why
 MODULES_EXEMPT = {
@@ -418,8 +424,6 @@ MODULES_EXEMPT = {
     "ops/idct_pallas.py": _IN_KERNELS,
     "ops/mocomp_pallas.py": _IN_KERNELS,
     "ops/vlc_scan_pallas.py": _IN_KERNELS,
-    "tools/perf_stages.py": "the TPU selector variants' timing tool: it "
-    "waits for the port's bench (ROADMAP Queue 1 item 1)",
 }
 # public names of a module with a counterpart that the counterpart lacks
 NAMES_EXEMPT = {
@@ -437,16 +441,6 @@ NAMES_EXEMPT = {
         "make_scan_step": "JAX-only: the XLA while loop's step builder "
         "(the port's scan_step and K1 / K1F / K1S)",
         "scanner_constants": "JAX-only: make_scan_step's constants"},
-    "ops/idct.py": {
-        name: _BLOCKS + " (block_residuals_T / block_residuals_flat and "
-        "their plain forms)" for name in (
-            "idct_8x8", "idct_8x8_T", "idct_8x8_flat", "dequant_levels",
-            "dequant_levels_T", "block_residuals")},
-    "ops/sbc_ops.py": {
-        "synthesis_step": _BLOCKS + " (models/sbc._synthesis_conv, K6)"},
-    "ops/scan_dense.py": {
-        name: _DENSIFY for name in ("assemble_dense", "assemble_dense_T",
-                                    "log_to_dense_rows")},
 }
 
 
