@@ -623,6 +623,7 @@ def serve_phase_a(dev, url: str, lanes: int, ticks: int, smi: str,
     """serve_scenario's full stage over HTTP with faults and a snapshot
     restored into a second fleet; returns the launch counts."""
     import torch
+    from espflix_tpu_torch.runtime import telemetry
     from espflix_tpu_torch.tools import serve_scenario as SS
 
     fleet = build_native_fleet(url, lanes, 2, stage="full", device=dev)
@@ -650,8 +651,9 @@ def serve_phase_a(dev, url: str, lanes: int, ticks: int, smi: str,
     tm = fleet.timers.acc
     host_ms = 1000 * (tm.get("gather_packed", 0) + tm.get("gather", 0)
                       + tm.get("batch_assemble", 0))
-    dev_ms = 1000 * (tm.get("device_chain", 0) + tm.get("host_sync", 0))
-    split = {k: round(1000 * v / ticks, 2) for k, v in tm.items()}
+    dev_ms = 1000 * (tm.get("chain_enqueue", 0) + tm.get("host_sync", 0))
+    split = {k: round(1000 * v / ticks, 2)
+             for k, v in telemetry.top_level(tm).items()}
     log(f"[serve A] {lanes} lanes x {ticks} ticks over HTTP on the native "
         f"feed: {1000 * stats.wall_s / ticks:.1f} ms/tick wall, host "
         f"(gather_packed, gather, assemble) {host_ms / ticks:.1f} ms/tick, "
@@ -1093,6 +1095,7 @@ def decode_serving(dev, url: str, lanes: int, smi: str, ticks: int = 16,
     injected faults each: every lane decodes, the faults are caught and
     resynced, and every decode kernel launched.  Returns the counts."""
     import torch
+    from espflix_tpu_torch.runtime import telemetry
     from espflix_tpu_torch.tools import serve_scenario as SS
 
     torch.cuda.synchronize()
@@ -1109,7 +1112,7 @@ def decode_serving(dev, url: str, lanes: int, smi: str, ticks: int = 16,
             raise AssertionError(
                 f"decode {dispatch}: the injected faults were not caught "
                 f"({stats.errors} errors, {stats.resyncs} resyncs)")
-        tm = fleet.timers.acc
+        tm = telemetry.top_level(fleet.timers.acc)
         split = {k: round(1000 * v / ticks, 2) for k, v in tm.items()}
         host = 1000 * stats.wall_s / ticks - sum(split.values())
         log(f"[decode {dispatch}] {lanes} lanes x {ticks} ticks over HTTP: "
@@ -1984,6 +1987,7 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
     import os
     import numpy as np
     import torch
+    from espflix_tpu_torch.runtime import telemetry
     from espflix_tpu_torch.runtime.hostpool import HostPool
     from espflix_tpu_torch.runtime.scheduler import Fleet
 
@@ -2043,8 +2047,8 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
             # the warm-up chunk's 4 ticks are in pool.timing too
             pt = {k: round(1000 * v / pool.timing["ticks"], 2)
                   for k, v in pool.timing.items() if k != "ticks"}
-        split = {k: round(1000 * v / n_ticks, 2)
-                 for k, v in fleet.timers.acc.items()}
+        split = {k: round(1000 * v / n_ticks, 2) for k, v in
+                 telemetry.top_level(fleet.timers.acc).items()}
         frames = sum(int(r.video_lanes.sum()) for r in rs)
         errors = sum(int(r.errors.sum()) for r in rs)
         if frames < n or errors:
@@ -2082,8 +2086,8 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
         ref += ref_fleet.run_chunk_full(4, tap_lanes=tap)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    split = {k: round(1000 * v / ticks, 2)
-             for k, v in ref_fleet.timers.acc.items()}
+    split = {k: round(1000 * v / ticks, 2) for k, v in
+             telemetry.top_level(ref_fleet.timers.acc).items()}
     log(f"[pooled] in-process run_chunk_full {lanes} lanes x {ticks} ticks "
         f"(after a 4-tick warm-up) over HTTP: {1000 * wall / ticks:.2f} "
         f"ms/tick wall; timers ms/tick {split}; untimed "

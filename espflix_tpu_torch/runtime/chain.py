@@ -35,6 +35,7 @@ from espflix_tpu_torch.ops import delta_sigma as DS
 from espflix_tpu_torch.ops import idct as IDCT
 from espflix_tpu_torch.ops.intwrap import wrap32
 from espflix_tpu_torch.ops import vlc_scan as VS
+from espflix_tpu_torch.runtime import telemetry
 from espflix_tpu_torch.runtime.output import _SIN32
 
 # per-tick xs keys (stacked [K, ...] by the caller)
@@ -124,12 +125,14 @@ class FullChain(nn.Module):
         """One tick: returns (sbc_state, ds_state, out); frames are
         updated in place.  slide: (y, u, v) outgoing-frame planes when
         the tick is scrolled (x["hscroll"] per lane), else None.
-        timer(stage) is a context manager factory used to time stages
-        (chip_smoke.py), or None.  lane0: this shard's first global
-        lane under a mesh -- tap_idx is then global and the taps come
-        back masked (int32 fields, zero for tapped lanes of other
-        shards) for the caller to sum over the shards (chain.py:160-178);
-        None: tap_idx indexes these lanes."""
+        timer(stage) is a context manager factory around each stage
+        (telemetry.STAGES), or None: a caller's (chip_smoke.py, the
+        bench's stage timers) or, from forward while a profiler records
+        and no caller gives one, telemetry.ChainSpans.stage.  lane0:
+        this shard's first global lane under a mesh -- tap_idx is then
+        global and the taps come back masked (int32 fields, zero for
+        tapped lanes of other shards) for the caller to sum over the
+        shards (chain.py:160-178); None: tap_idx indexes these lanes."""
         from contextlib import nullcontext
         stage = timer or (lambda _name: nullcontext())
         F = self.n_aud_frames
@@ -204,8 +207,15 @@ class FullChain(nn.Module):
                 tap: int, channels: int = 1, return_planes: bool = True,
                 win: int = 0, chunk: int = 128, scrolled: bool = False,
                 slide=None, timer=None):
-        """K ticks (see run_full_chunk); slide is used when scrolled."""
+        """K ticks (see run_full_chunk); slide is used when scrolled.
+        While a profiler records and `timer` is None, the stages get the
+        chain's own spans and the call appends a "chain" record
+        (runtime/telemetry.ChainSpans)."""
         K = next(iter(xs.values())).shape[0]
+        spans = None
+        if timer is None and telemetry.tracing():
+            spans = telemetry.ChainSpans(self.scan_lut.device)
+            timer = spans.stage
         outs = []
         for k in range(K):
             x = {key: v[k] for key, v in xs.items()}
@@ -220,6 +230,8 @@ class FullChain(nn.Module):
             outs.append(out)
         stacked = {key: torch.stack([o[key] for o in outs])
                    for key in outs[0]}
+        if spans is not None:
+            spans.close(K)
         return frames, sbc_state, ds_state, stacked
 
 

@@ -12,6 +12,10 @@ same containment policies and log the same events:
   * ``gather_pictures`` -- advance every presentation clock, pop at most
     one picture per lane (native feeds fleet-wide in one ctypes call a
     pump round, ``batched_next_pictures``) and admit them in lane order;
+    it adds the tick's session-feed counts (``feed.*``, named in
+    runtime/telemetry.py) to a `tally` dict and opens the spans
+    ``gather.pop`` and ``gather.read`` through a `measure` callable
+    (Timers.measure-shaped), when the caller gives them;
   * ``gather_audio_arrays`` -- one tick of SBC frames as the chain's
     big-endian word array, grouped by channel count
     (Ev.AUDIO_OP_POINT, Ev.AUDIO_STARVED).
@@ -22,6 +26,8 @@ this module and never torch.
 """
 
 from __future__ import annotations
+
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -96,43 +102,61 @@ def fast_lanes(sessions):
     return fast, slow
 
 
-def batched_next_pictures(sessions):
+def _no_span(_name):
+    return nullcontext()
+
+
+def batched_next_pictures(sessions, tally: dict | None = None,
+                          measure=None):
     """Native-feed lanes pop in ONE sf_pop_pictures call per pump round
     (scheduler.py:294-338), with PlayerSession.next_picture's per-lane
     order: pop, pump on a miss, pop again, DONE at EOS.  Returns {lane:
     PictureData|None} for every lane it handled, or None when no lane
-    is on the fast path."""
+    is on the fast path.  Counts its rounds in `tally` ("feed.rounds");
+    `measure` spans each round's pop ("gather.pop") and pumps
+    ("gather.read", which holds their feed calls too)."""
     pending = fast_lanes(sessions)[0]
     if not pending:
         return None
+    span = measure or _no_span
     got = {i: None for i, _ in pending}
+    rounds = 0
     for _ in range(64):                  # next_picture max_pumps
         if not pending:
             break
-        res = NF.pop_many([s.feed for _, s in pending])
+        rounds += 1
+        with span("gather.pop"):
+            res = NF.pop_many([s.feed for _, s in pending])
         nxt = []
-        for (i, s), p in zip(pending, res):
-            if p is not None:
-                got[i] = p
-            elif s.pump():
-                nxt.append((i, s))
-            else:
-                p = s.feed.pop_picture()
-                if p is None:
-                    s.state = State.DONE
-                    s.save_pos(False)
-                got[i] = p
+        with span("gather.read"):
+            for (i, s), p in zip(pending, res):
+                if p is not None:
+                    got[i] = p
+                elif s.pump():
+                    nxt.append((i, s))
+                else:
+                    p = s.feed.pop_picture()
+                    if p is None:
+                        s.state = State.DONE
+                        s.save_pos(False)
+                    got[i] = p
         pending = nxt
+    if tally is not None:
+        add_counts(tally, {"feed.rounds": rounds})
     return got
 
 
 def gather_pictures(sessions, log, *, geometry: tuple[int, int],
                     words_per_lane: int, max_slices: int,
-                    batched: bool = True):
+                    batched: bool = True, tally: dict | None = None,
+                    measure=None):
     """One display tick of picture gather: advance every session's
     presentation clock, pull at most one complete picture per lane
     (native lanes batched when `batched`), and admit them in lane
-    order.  Returns (pictures, pts int64[N], pre_errors bool[N])."""
+    order.  Returns (pictures, pts int64[N], pre_errors bool[N]).
+    With `tally`, adds the tick's feed.bytes_read (what the sessions'
+    pumps read), feed.rounds (the batched pop's rounds; the per-lane
+    path counts one), feed.lane_ticks and feed.underruns."""
     n = len(sessions)
     pics = [None] * n
     pts = np.full(n, -1, np.int64)
@@ -140,8 +164,13 @@ def gather_pictures(sessions, log, *, geometry: tuple[int, int],
     for s in sessions:
         if s is not None:
             s.clock.tick()
+    if tally is not None:
+        playing = sum(s is not None and s.state in PUMP_STATES
+                      for s in sessions)
+        read0 = read_total(sessions)
     pre_errors = np.zeros(n, bool)
-    got = batched_next_pictures(sessions) if batched else None
+    got = batched_next_pictures(sessions, tally, measure) if batched \
+        else None
     for i, s in enumerate(sessions):
         if s is None:
             continue
@@ -155,7 +184,26 @@ def gather_pictures(sessions, log, *, geometry: tuple[int, int],
             continue
         pics[i] = p
         pts[i] = p.pts
+    if tally is not None:
+        add_counts(tally, {
+            "feed.bytes_read": read_total(sessions) - read0,
+            "feed.rounds": 0 if got is not None else 1,
+            "feed.lane_ticks": playing,
+            "feed.underruns": playing - sum(p is not None for p in pics)})
     return pics, pts, pre_errors
+
+
+def read_total(sessions) -> int:
+    """Bytes the sessions' pumps have read (PlayerSession.bytes_read; a
+    session that keeps no such count reads 0)."""
+    return sum(getattr(s, "bytes_read", 0) for s in sessions
+               if s is not None)
+
+
+def add_counts(tally: dict, counts: dict):
+    """Add `counts` to the `tally` dict, name by name."""
+    for k, v in counts.items():
+        tally[k] = tally.get(k, 0) + int(v)
 
 
 def gather_audio_arrays(sessions, F: int, op, log):

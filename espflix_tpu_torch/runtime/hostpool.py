@@ -92,10 +92,11 @@ def _worker_main(conn, lane_lo, lane_hi, words_per_lane, mb_w, mb_h):
             def log(ev, lane=-1, value=0):
                 evs.append((int(ev), lane_lo + lane, int(value)))
             return log
+        feed = {}
         pics, pts, pre_errors = HG.gather_pictures(
             sessions, logger(ev_pic), geometry=(mb_w * 16, mb_h * 16),
             words_per_lane=words_per_lane, max_slices=mb_h,
-            batched=batched)
+            batched=batched, tally=feed)
         n_i = sum(p is not None and p.pic_type == 1 for p in pics)
         b = make_picture_batch(pics, words_per_lane=words_per_lane,
                                max_slices=mb_h, geometry=(mb_w, mb_h))
@@ -116,7 +117,7 @@ def _worker_main(conn, lane_lo, lane_hi, words_per_lane, mb_w, mb_h):
             video=np.array([p is not None for p in pics]),
             aud_words=aud_words, aud_act=act, aud_nval=nval,
             starved=starved, aud_op=aud_op[0], ev_pic=ev_pic,
-            ev_aud=ev_aud)
+            ev_aud=ev_aud, feed=feed)
         if dev_win:
             # per-LANE payload words; the [rows, win] windows gather on
             # the device
@@ -332,6 +333,13 @@ class HostPool:
         out["ev_aud"] = [e for p in parts for e in p["ev_aud"]]
         ops = [p["aud_op"] for p in parts if p["aud_op"]]
         out["aud_op"] = ops[0] if ops else None
+        # the shards' feed counts (host_gather.gather_pictures' tally);
+        # they pump side by side, so the tick's rounds are the most any
+        # worker made
+        out["feed"] = {k: sum(p["feed"][k] for p in parts)
+                       for k in parts[0]["feed"]}
+        out["feed"]["feed.rounds"] = max(p["feed"]["feed.rounds"]
+                                         for p in parts)
         tm = self.timing
         tm["ticks"] += 1
         tm["worker_s"] += max(p["gather_s"] for p in parts)

@@ -61,6 +61,7 @@ class PlayerSession:
         self.info: dict[int, TitleInfo] = {}
         self.feed = make_stream_feed()
         self.eos = False
+        self.bytes_read = 0         # bytes pump() read, running total
         self.last_pts = -1          # last presented PTS (current stream)
         self.clock = PresentationClock(pal=pal)
         self.last_due = 0           # counter value the frame was due at
@@ -261,6 +262,7 @@ class PlayerSession:
             self.feed.eos()
             self.eos = True
             return False
+        self.bytes_read += len(data)
         self.feed.feed(data)
         return True
 

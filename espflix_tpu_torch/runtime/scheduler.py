@@ -46,6 +46,19 @@ per-lane paths.  run_chunk_full_pooled runs the full chain on lanes whose
 sessions live in host worker processes (runtime/hostpool.HostPool).
 
 Frames and SBC history stay on the fleet's device (CUDA by default).
+
+Fleet.timers (runtime/telemetry.Timers; profiler ranges ``fleet.<name>``
+while a torch.profiler records) spans a full-chain chunk's host work:
+gather_packed (and gather on the classic path) with a pump round's
+gather.pop, gather.read and gather.feed inside; batch_assemble with the
+copy to the device, upload, inside; chain_enqueue, the host's enqueue
+of the chain; host_sync with the copies to the host, readback, inside
+(while tracing, after a synchronisation, so readback times the copies
+alone).  Fleet.counters holds the session feed's running totals
+(feed.bytes_read, feed.rounds, feed.lane_ticks, feed.underruns), and
+each full-chain chunk traced from start to end appends a "fleet" record
+of its counts, the chain a "chain" record of its spans per stage
+(telemetry.traced reads them).
 """
 
 from __future__ import annotations
@@ -64,7 +77,8 @@ from espflix_tpu_torch.ops import vlc_scan as VS
 from espflix_tpu_torch.parallel import mesh as PM
 from espflix_tpu_torch.runtime import chain as CH
 from espflix_tpu_torch.runtime import host_gather as HG
-from espflix_tpu_torch.runtime.events import Ev, EventLog, Timers
+from espflix_tpu_torch.runtime import telemetry
+from espflix_tpu_torch.runtime.events import Ev, EventLog
 from espflix_tpu_torch.runtime.output import OutputStage
 from espflix_tpu_torch.runtime.player import READ_CHUNK, PlayerSession, \
     State
@@ -175,7 +189,9 @@ class Fleet:
         self.audio_F = audio_frames_per_tick
         self.sessions: list[PlayerSession | None] = [None] * n_lanes
         self.events = EventLog()
-        self.timers = Timers()
+        self.timers = telemetry.Timers()
+        # the session feed's running totals (runtime/telemetry.py)
+        self.counters: dict[str, int] = {}
         self.pal = pal
         self.parser = parser
         self._aud_op = None       # discovered channel-count group
@@ -311,7 +327,8 @@ class Fleet:
             self.sessions, self.events.log,
             geometry=(self.width, self.height),
             words_per_lane=self.words_per_lane, max_slices=self.mb_h,
-            batched=self._batched_pop)
+            batched=self._batched_pop, tally=self.counters,
+            measure=self.timers.measure)
 
     # -- packed gather (native pops straight into the batch layout) ------
     def _ensure_packed(self):
@@ -331,12 +348,18 @@ class Fleet:
         off the fast path) are checked after the rounds in lane order,
         so the events come out as _gather_pictures logs them.  Returns
         (batch_dict, pts, pre_errors), or None when the fast path is off
-        or has no lane (the caller falls back to the classic gather)."""
+        or has no lane (the caller falls back to the classic gather).
+        Each pump round spans its pop ("gather.pop"), its streamer reads
+        ("gather.read") and its feed call ("gather.feed"); the tick's
+        feed counts go to Fleet.counters."""
         if not (self._batched_pop and self._packed_pop and NF.available()):
             return None
         fast, slow = HG.fast_lanes(self.sessions)
         if not fast:
             return None
+        span = self.timers.measure
+        playing = len(fast) + sum(s.state in _PUMP_STATES for _, s in slow)
+        n_read = rounds = 0
         pb = self._ensure_packed()
         for s in self.sessions:
             if s is not None:
@@ -350,9 +373,11 @@ class Fleet:
         for _ in range(64):                  # next_picture max_pumps
             if not pending:
                 break
+            rounds += 1
             feeds = [s.feed for _, s in pending]
             slots = [i for i, _ in pending]
-            rc, meta, iq8, nq8 = NF.pop_many_packed(pb, feeds, slots)
+            with span("gather.pop"):
+                rc, meta, iq8, nq8 = NF.pop_many_packed(pb, feeds, slots)
             slots_a = np.asarray(slots, np.int32)
             got = rc == 1
             if got.any():
@@ -407,37 +432,49 @@ class Fleet:
             # for the round (sf_feed_many); a patched pump() stays the
             # per-lane override point
             bat_f, bat_d = [], []
-            for i, s in pump_io:
-                if ("pump" in s.__dict__
-                        or type(s).pump is not PlayerSession.pump):
-                    if s.pump():
-                        nxt.append((i, s))
-                        continue
-                elif not s.eos:
-                    data = s.streamer.read(READ_CHUNK)
-                    if data:
-                        bat_f.append(s.feed)
-                        bat_d.append(data)
-                        nxt.append((i, s))
-                        continue
-                    s.feed.eos()
-                    s.eos = True
-                p = s.feed.pop_picture()
-                if p is None:
-                    s.state = State.DONE
-                    s.save_pos(False)
-                else:
-                    checks.append(self._check_of(i, s, p))
-            NF.feed_many(bat_f, bat_d)
+            with span("gather.read"):
+                for i, s in pump_io:
+                    if ("pump" in s.__dict__
+                            or type(s).pump is not PlayerSession.pump):
+                        b0 = s.bytes_read
+                        pumped = s.pump()
+                        n_read += s.bytes_read - b0
+                        if pumped:
+                            nxt.append((i, s))
+                            continue
+                    elif not s.eos:
+                        data = s.streamer.read(READ_CHUNK)
+                        if data:
+                            bat_f.append(s.feed)
+                            bat_d.append(data)
+                            nxt.append((i, s))
+                            continue
+                        s.feed.eos()
+                        s.eos = True
+                    p = s.feed.pop_picture()
+                    if p is None:
+                        s.state = State.DONE
+                        s.save_pos(False)
+                    else:
+                        checks.append(self._check_of(i, s, p))
+            n_read += sum(map(len, bat_d))
+            with span("gather.feed"):
+                NF.feed_many(bat_f, bat_d)
             pending = nxt
+        read0 = HG.read_total(s for _, s in slow)
         for i, s in slow:
             p = s.next_picture()
             if p is not None:
                 checks.append(self._check_of(i, s, p))
+        n_read += HG.read_total(s for _, s in slow) - read0
         for i, s, w, h, plen, nsl, p in sorted(checks, key=lambda c: c[0]):
             if self._admit(i, s, w, h, plen, nsl, pre_errors) \
                     and p is not None:
                 pb.merge_picture(i, p)
+        HG.add_counts(self.counters, {
+            "feed.bytes_read": n_read, "feed.rounds": rounds,
+            "feed.lane_ticks": playing,
+            "feed.underruns": playing - int(pb.active.sum())})
         return pb.batch_dict(), pb.pts.copy(), pre_errors
 
     @staticmethod
@@ -914,6 +951,7 @@ class Fleet:
             raise ValueError("the full chain runs on the 'pallas' parser")
         n_sh = self.mesh.shape["streams"] if self.mesh is not None else 0
         F = self.audio_F
+        counted = dict(self.counters) if telemetry.tracing() else None
         gathered = []
         xs_t = []
         dup_any = np.zeros(self.n, bool)
@@ -993,8 +1031,9 @@ class Fleet:
                     x["aud_words"],
                     ((0, 0), (0, 0), (0, Wa - x["aud_words"].shape[2])))
             stacked = {k: np.stack([x[k] for x in xs_t]) for k in xs_t[0]}
-            xs = M.xs_to_torch(stacked, self.device) if not n_sh else \
-                PM.shard_axis1_tree(self.mesh, stacked)
+            with self.timers.measure("upload"):
+                xs = M.xs_to_torch(stacked, self.device) if not n_sh \
+                    else PM.shard_axis1_tree(self.mesh, stacked)
         self.events.log(Ev.DECODE_BATCH, value=sum(
             int(x["active"].sum()) for x in xs_t))
 
@@ -1008,7 +1047,7 @@ class Fleet:
                       steps_short=steps_short, tap=tap, channels=ch,
                       return_planes=True, win=win,
                       chunk=min(chunk, steps_short), scrolled=scrolled)
-        with self.timers.measure("device_chain"):
+        with self.timers.measure("chain_enqueue"):
             if n_sh:
                 # the first call moves the lane-major carries onto the
                 # mesh (shard_lane_tree keeps Sharded values as they are)
@@ -1029,9 +1068,14 @@ class Fleet:
                     tap_idx, n_lanes=self.n, slide=slide, **run_kw)
 
         with self.timers.measure("host_sync"):
-            outs = {k: self._joined(v, PM.AXIS1) for k, v in outs.items()}
-            errs, fsum, psum, audio_errs, tap_f, tap_p = \
-                self._chain_outs_to_host(outs, tap)
+            if telemetry.tracing():
+                telemetry.sync(*(self.mesh.device_list() if n_sh
+                                 else [self.device]))
+            with self.timers.measure("readback"):
+                outs = {k: self._joined(v, PM.AXIS1)
+                        for k, v in outs.items()}
+                errs, fsum, psum, audio_errs, tap_f, tap_p = \
+                    self._chain_outs_to_host(outs, tap)
             errs = errs | dup_any[None, :]
 
         results = []
@@ -1056,8 +1100,16 @@ class Fleet:
                 field_sum=fsum[t], pdm_sum=psum[t],
                 tap_fields=tap_f[t] if tap else None,
                 tap_pdm=tap_p[t] if tap else None))
+        self._record_chunk(n_ticks, counted)
         return results
 
+    def _record_chunk(self, n_ticks: int, counted: dict | None):
+        """A full-chain chunk's "fleet" record (runtime/telemetry.py):
+        its feed counts, when a profiler recorded from its start
+        (`counted`, the counters then) to its end."""
+        if counted is not None and telemetry.tracing():
+            telemetry.record("fleet", n_ticks,
+                             counters=telemetry.delta(self.counters, counted))
 
     # -- the full chain fed by a HostPool --------------------------------
     def run_chunk_full_pooled(self, pool, n_ticks: int, tap_lanes=(),
@@ -1081,12 +1133,14 @@ class Fleet:
         F = self.audio_F
         mbh = self.mb_h
         NS = self.n * mbh
+        counted = dict(self.counters) if telemetry.tracing() else None
         xs_t = []
         meta = []
         need_long = 8
         for _ in range(n_ticks):
             with self.timers.measure("batch_assemble"):
                 g = pool.gather_tick(F)
+            HG.add_counts(self.counters, g["feed"])
             for ev, lane, value in g["ev_pic"] + g["ev_aud"]:
                 self.events.log(Ev(ev), lane, value=value)
             need_long = max(need_long, g["n_i"] * mbh)
@@ -1154,8 +1208,9 @@ class Fleet:
                 x["aud_words"] = np.pad(
                     x["aud_words"],
                     ((0, 0), (0, 0), (0, Wa - x["aud_words"].shape[2])))
-            xs = M.xs_to_torch({k: np.stack([x[k] for x in xs_t])
-                                for k in okeys}, self.device)
+            stacked = {k: np.stack([x[k] for x in xs_t]) for k in okeys}
+            with self.timers.measure("upload"):
+                xs = M.xs_to_torch(stacked, self.device)
 
         self.events.log(Ev.DECODE_BATCH, value=sum(
             int(g["active"].sum()) for g in meta))
@@ -1163,7 +1218,7 @@ class Fleet:
         ops = [g["aud_op"] for g in meta if g["aud_op"]]
         ch = ops[0] if ops else 1
 
-        with self.timers.measure("device_chain"):
+        with self.timers.measure("chain_enqueue"):
             (self.frames, self.sbc_state, self.output.pdm_state,
              outs) = self.chain(
                 xs, self.frames, self.sbc_state, self.output.pdm_state,
@@ -1175,8 +1230,11 @@ class Fleet:
                 slide=slide)
 
         with self.timers.measure("host_sync"):
-            errs, fsum, psum, audio_errs, tap_f, tap_p = \
-                self._chain_outs_to_host(outs, tap)
+            if telemetry.tracing():
+                telemetry.sync(self.device)
+            with self.timers.measure("readback"):
+                errs, fsum, psum, audio_errs, tap_f, tap_p = \
+                    self._chain_outs_to_host(outs, tap)
 
         results = []
         for t, g in enumerate(meta):
@@ -1195,6 +1253,7 @@ class Fleet:
                 field_sum=fsum[t], pdm_sum=psum[t],
                 tap_fields=tap_f[t] if tap else None,
                 tap_pdm=tap_p[t] if tap else None))
+        self._record_chunk(n_ticks, counted)
         return results
 
 

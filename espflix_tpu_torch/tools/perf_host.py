@@ -15,8 +15,11 @@ runtime/scheduler.run_chunk_full), part by part:
 
 then runs --chunks chunks of 4 ticks through run_chunk_full itself on
 --device (the card by default) and reports the fleet's timers a tick
-(gather_packed, gather, batch_assemble, device_chain, host_sync) and
-the wall time they leave untimed.  Prints one JSON line.
+(gather_packed, gather, batch_assemble, chain_enqueue -- the host's
+enqueue of the chain, not its device time --, host_sync, and the spans
+nested in them: gather.pop, gather.read, gather.feed, upload, readback;
+runtime/telemetry.py) and the wall time the top-level ones leave
+untimed.  Prints one JSON line.
 
 Usage:  python -m espflix_tpu_torch.tools.perf_host --lanes 1024 --ticks 8
         ... --device cpu --lanes 4 --ticks 2 --chunks 1
@@ -125,6 +128,7 @@ def main(argv=None):
         "nproc": os.cpu_count(),
     }
     if args.chunks:
+        from espflix_tpu_torch.runtime import telemetry
         # the same fleet through run_chunk_full: its timers a tick
         fleet.run_chunk_full(4)                 # warm-up chunk
         fleet.timers.acc.clear()
@@ -141,7 +145,8 @@ def main(argv=None):
         out["chain_ticks"] = n_t
         out["tick_wall_ms"] = wall
         out["timers_ms"] = timers
-        out["untimed_ms"] = wall - sum(timers.values())
+        out["untimed_ms"] = wall - sum(telemetry.top_level(timers)
+                                       .values())
     print(json.dumps(out))
     if tmp is not None:
         tmp.cleanup()
