@@ -42,20 +42,25 @@ fleet-wide in one ctypes call a pump round, and
 run_chunk_full pops them straight into the batch layout
 (_gather_batch_packed, timer "gather_packed") and drains their SBC rings
 in one call; ESPFLIX_BATCHED_POP=0 / ESPFLIX_PACKED_POP=0 restore the
-per-lane paths.  run_chunk_full_pooled runs the full chain on lanes whose
-sessions live in host worker processes (runtime/hostpool.HostPool).
+per-lane paths.  On the packed path a lane whose Streamer has a regular
+file open reads from a read-only mapping of the file
+(streaming/title_maps.py), one numpy gather per file a pump round.
+run_chunk_full_pooled runs the full chain on lanes whose sessions live
+in host worker processes (runtime/hostpool.HostPool).
 
 Frames and SBC history stay on the fleet's device (CUDA by default).
 
 Fleet.timers (runtime/telemetry.Timers; profiler ranges ``fleet.<name>``
 while a torch.profiler records) spans a full-chain chunk's host work:
 gather_packed (and gather on the classic path) with a pump round's
-gather.pop, gather.read and gather.feed inside; batch_assemble with the
-copy to the device, upload, inside; chain_enqueue, the host's enqueue
-of the chain; host_sync with the copies to the host, readback, inside
-(while tracing, after a synchronisation, so readback times the copies
-alone).  Fleet.counters holds the session feed's running totals
-(feed.bytes_read, feed.rounds, feed.lane_ticks, feed.underruns), and
+gather.pop, gather.read (the Python reads of the lanes off the mappings,
+and the tick's attach check) and gather.feed (the mapped gather and the
+feed call) inside; batch_assemble with the copy to the device, upload,
+inside; chain_enqueue, the host's enqueue of the chain; host_sync with
+the copies to the host, readback, inside (while tracing, after a
+synchronisation, so readback times the copies alone).  Fleet.counters
+holds the session feed's running totals (feed.bytes_read,
+feed.mapped_bytes, feed.rounds, feed.lane_ticks, feed.underruns), and
 each full-chain chunk traced from start to end appends a "fleet" record
 of its counts, the chain a "chain" record of its spans per stage
 (telemetry.traced reads them).
@@ -83,6 +88,7 @@ from espflix_tpu_torch.runtime.output import OutputStage
 from espflix_tpu_torch.runtime.player import READ_CHUNK, PlayerSession, \
     State
 from espflix_tpu_torch.streaming import native_feed as NF
+from espflix_tpu_torch.streaming import title_maps as TMAP
 
 
 @dataclass
@@ -148,6 +154,13 @@ def bucket_policy(need: int, ns_rows: int, *, steps_long: int,
 
 
 _PUMP_STATES = HG.PUMP_STATES
+
+
+def _pump_patched(s) -> bool:
+    """Whether a session's pump() is overridden (subclass or patch)."""
+    return "pump" in s.__dict__ or type(s).pump is not PlayerSession.pump
+
+
 # the mesh slice scan's row inputs, in the decoder's argument order
 ROW_KEYS = M.SCAN_KEYS + ("perm",)
 
@@ -221,6 +234,7 @@ class Fleet:
         self._packed_pop = os.environ.get(
             "ESPFLIX_PACKED_POP", "1") != "0"
         self._packed = None
+        self._titles = None       # streaming/title_maps.TitleMaps
         # the device parser's symbol budget (scheduler.py:164-181)
         max_steps = min(words_per_lane * 32, 12000)
         if mesh is not None:
@@ -323,6 +337,9 @@ class Fleet:
         advance every session's clock, pull at most one complete picture
         per lane (native lanes batched unless ESPFLIX_BATCHED_POP=0) and
         apply the containment policies in lane order."""
+        if self._titles is not None:
+            # the sessions' Streamers read again: hand the cursors back
+            self._titles.release()
         return HG.gather_pictures(
             self.sessions, self.events.log,
             geometry=(self.width, self.height),
@@ -335,6 +352,7 @@ class Fleet:
         if self._packed is None:
             self._packed = NF.PackedBatch(self.n, self.words_per_lane,
                                           self.mb_h, self.mb_w, self.mb_h)
+            self._titles = TMAP.TitleMaps(self.n, READ_CHUNK)
         return self._packed
 
     def _gather_batch_packed(self):
@@ -349,18 +367,34 @@ class Fleet:
         so the events come out as _gather_pictures logs them.  Returns
         (batch_dict, pts, pre_errors), or None when the fast path is off
         or has no lane (the caller falls back to the classic gather).
-        Each pump round spans its pop ("gather.pop"), its streamer reads
-        ("gather.read") and its feed call ("gather.feed"); the tick's
-        feed counts go to Fleet.counters."""
+
+        A fast lane whose pump is not overridden and whose Streamer has
+        a regular file open reads from a read-only mapping of that file
+        (streaming/title_maps.py; titles are immutable while served):
+        the attach check runs once a tick, and a round's mapped reads
+        are one numpy gather per file, with no Python per lane.  Other
+        lanes read through their Streamer or their patched pump.  Each
+        pump round spans its pop ("gather.pop"), the Python reads of
+        the unmapped lanes ("gather.read", which also holds the tick's
+        attach check) and the mapped gather with the feed call
+        ("gather.feed"); the tick's feed counts go to Fleet.counters."""
         if not (self._batched_pop and self._packed_pop and NF.available()):
             return None
         fast, slow = HG.fast_lanes(self.sessions)
         if not fast:
+            if self._titles is not None:
+                self._titles.release()
             return None
         span = self.timers.measure
         playing = len(fast) + sum(s.state in _PUMP_STATES for _, s in slow)
-        n_read = rounds = 0
+        n_read = n_mapped = rounds = 0
         pb = self._ensure_packed()
+        tm = self._titles
+        with span("gather.read"):
+            mapped = [(i, s) for i, s in fast
+                      if not (s.eos or _pump_patched(s))]
+            tm.sync([i for i, _ in mapped], [s.streamer for _, s in mapped],
+                    [s.feed._lane for _, s in mapped])
         for s in self.sessions:
             if s is not None:
                 s.clock.tick()
@@ -416,51 +450,67 @@ class Fleet:
                                    int(m[NF.M_WIDTH]), int(m[NF.M_HEIGHT]),
                                    int(m[NF.M_PAYLOAD_LEN]),
                                    int(m[NF.M_NSLICES]), None))
-            nxt = []
-            pump_io = []
-            for k in np.flatnonzero(~got):
+            for k in np.flatnonzero(rc < 0):
+                # capacity: the picture was NOT consumed; pop it through
+                # the growable per-lane path
                 i, s = pending[k]
-                if rc[k] < 0:
-                    # capacity: the picture was NOT consumed; pop it
-                    # through the growable per-lane path
-                    p = s.feed.pop_picture()
-                    if p is not None:
-                        checks.append(self._check_of(i, s, p))
-                else:
-                    pump_io.append((i, s))
-            # one streamer read per starved lane and ONE native feed call
-            # for the round (sf_feed_many); a patched pump() stays the
-            # per-lane override point
-            bat_f, bat_d = [], []
+                p = s.feed.pop_picture()
+                if p is not None:
+                    checks.append(self._check_of(i, s, p))
+            starved = rc == 0
+            on_map = tm.src[slots_a] >= 0
+            keep = np.zeros(len(pending), bool)   # pumped: pop again
+            # one streamer read per starved unmapped lane; a patched
+            # pump() stays the per-lane override point
+            bat_l, bat_d = [], []
             with span("gather.read"):
-                for i, s in pump_io:
-                    if ("pump" in s.__dict__
-                            or type(s).pump is not PlayerSession.pump):
+                for k in np.flatnonzero(starved & ~on_map):
+                    i, s = pending[k]
+                    if _pump_patched(s):
                         b0 = s.bytes_read
                         pumped = s.pump()
                         n_read += s.bytes_read - b0
                         if pumped:
-                            nxt.append((i, s))
+                            keep[k] = True
                             continue
                     elif not s.eos:
                         data = s.streamer.read(READ_CHUNK)
                         if data:
-                            bat_f.append(s.feed)
+                            bat_l.append(s.feed._lane)
                             bat_d.append(data)
-                            nxt.append((i, s))
+                            keep[k] = True
                             continue
                         s.feed.eos()
                         s.eos = True
-                    p = s.feed.pop_picture()
-                    if p is None:
-                        s.state = State.DONE
-                        s.save_pos(False)
-                    else:
-                        checks.append(self._check_of(i, s, p))
-            n_read += sum(map(len, bat_d))
+                    self._last_pop(i, s, checks)
+            # the mapped lanes' reads, then ONE native feed call for the
+            # round (sf_feed_many)
             with span("gather.feed"):
-                NF.feed_many(bat_f, bat_d)
-            pending = nxt
+                buf = tm.buf
+                n_py = sum(map(len, bat_d))
+                if n_py:
+                    buf[:n_py] = np.frombuffer(b"".join(bat_d), np.uint8)
+                mk = np.flatnonzero(starved & on_map)
+                order, lens, n_map = tm.gather(slots_a[mk], n_py)
+                fed = mk[order]
+                keep[fed] = True
+                NF.feed_array(
+                    np.concatenate([np.asarray(bat_l, np.int32),
+                                    tm.nlane[slots_a[fed]]]), buf,
+                    np.concatenate([np.fromiter(map(len, bat_d), np.int64,
+                                                len(bat_d)), lens[order]]))
+            n_read += n_py + n_map
+            n_mapped += n_map
+            ends = mk[lens == 0]
+            if len(ends):
+                # mapped lanes at their title's end: the EOS branch
+                with span("gather.read"):
+                    for k in ends:
+                        i, s = pending[k]
+                        s.feed.eos()
+                        s.eos = True
+                        self._last_pop(i, s, checks)
+            pending = [pending[k] for k in np.flatnonzero(keep)]
         read0 = HG.read_total(s for _, s in slow)
         for i, s in slow:
             p = s.next_picture()
@@ -472,10 +522,20 @@ class Fleet:
                     and p is not None:
                 pb.merge_picture(i, p)
         HG.add_counts(self.counters, {
-            "feed.bytes_read": n_read, "feed.rounds": rounds,
-            "feed.lane_ticks": playing,
+            "feed.bytes_read": n_read, "feed.mapped_bytes": n_mapped,
+            "feed.rounds": rounds, "feed.lane_ticks": playing,
             "feed.underruns": playing - int(pb.active.sum())})
         return pb.batch_dict(), pb.pts.copy(), pre_errors
+
+    def _last_pop(self, i, s, checks):
+        """A lane that pumped nothing: its last picture to check, or
+        DONE with its position saved (next_picture's EOS branch)."""
+        p = s.feed.pop_picture()
+        if p is None:
+            s.state = State.DONE
+            s.save_pos(False)
+        else:
+            checks.append(self._check_of(i, s, p))
 
     @staticmethod
     def _check_of(i, s, p):

@@ -10,9 +10,12 @@ CUDA event or synchronises: only the counters count.
   one; its spans and the sub-spans nested in them (``NESTED``) are
   listed in runtime/scheduler.py's docstring.
 - counters: Fleet.counters, a dict of named running totals, holds the
-  session feed's: ``feed.bytes_read`` (bytes the streamers returned),
-  ``feed.rounds`` (pump rounds), ``feed.lane_ticks`` (lanes playing,
-  fast-forwarding or rewinding at a tick's start) and
+  session feed's: ``feed.bytes_read`` (bytes the pump rounds fed),
+  ``feed.mapped_bytes`` (those of them the packed gather took from
+  read-only mappings of the title files, streaming/title_maps.py, and
+  not from the streamers), ``feed.rounds`` (pump rounds),
+  ``feed.lane_ticks`` (lanes playing, fast-forwarding or rewinding at
+  a tick's start) and
   ``feed.underruns`` (those of them that ended the tick with no
   picture), added once a tick (runtime/host_gather.add_counts);
   ``delta`` is a stretch's share of them.

@@ -12,7 +12,13 @@ and the JAX package's native feed.
   * pop_many_packed: Fleet._gather_batch_packed's batch dict equals
     make_picture_batch of the classic gather and the JAX packed dict,
     tick for tick, and logs the classic gather's events in its order,
-    also when lanes are parked or resynced.
+    also when lanes are parked or resynced;
+  * mapped title reads (streaming/title_maps.py): the packed gather
+    reading from file mappings gives what it gives on Streamer.read --
+    batches, pts, flags, states, SBC rows, events and feed counts --
+    from ranged opens, through seeks, pauses and trick play, to the
+    titles' ends; a lane taken off the mappings reads on from the byte
+    after the last mapped read.
 
 Exact equality throughout (bytes and integers).  The port's feeds and
 the JAX package's share native/libespflix_native.so, each with its own
@@ -31,7 +37,9 @@ from espflix_tpu.tools import serve_scenario as JSS
 from espflix_tpu_torch.models import mpeg1 as TM
 from espflix_tpu_torch.runtime import scheduler as TSCH
 from espflix_tpu_torch.runtime import session as TSES
+from espflix_tpu_torch.runtime.player import READ_CHUNK
 from espflix_tpu_torch.streaming import native_feed as TNF
+from espflix_tpu_torch.streaming import title_maps as TMAPS
 from espflix_tpu_torch.tools import serve_scenario as TSS
 
 torch.set_num_threads(1)
@@ -294,3 +302,134 @@ def test_packed_policies_log_the_classic_events(service, monkeypatch, case):
         assert sa == sb and np.array_equal(pa, pb) and np.array_equal(ea, eb)
         for k in ("active", "pic_type", "n_slices", "n_words"):
             assert np.array_equal(ba[k], bb[k]), k
+
+
+# ---- mapped title reads ------------------------------------------------
+
+def _served_run(fleet, ticks, act=None):
+    """run_chunk_full's host gather, tick by tick: per tick the batch
+    dict, pts, pre_errors, session states and SBC rows; then the events
+    and the feed counters but feed.mapped_bytes.  act(t, fleet) runs
+    before tick t (control between ticks, as between chunks)."""
+    out = []
+    for t in range(ticks):
+        if act is not None:
+            act(t, fleet)
+        (b, pts, pre, states), = _packed_run(fleet, TM, ticks=1)
+        sbc = fleet._gather_audio_arrays(fleet.audio_F)[:4]
+        out.append((b, pts, pre, states, [a.copy() for a in sbc]))
+    counts = {k: v for k, v in fleet.counters.items()
+              if k != "feed.mapped_bytes"}
+    return out, _events(fleet), counts
+
+
+def _assert_runs_equal(a, b):
+    (ta, ev_a, ca), (tb, ev_b, cb) = a, b
+    _assert_batches_equal([t[:4] for t in ta], [t[:4] for t in tb])
+    for t, (x, y) in enumerate(zip(ta, tb)):
+        assert all(np.array_equal(p, q) for p, q in zip(x[4], y[4])), t
+    assert ev_a == ev_b and ca == cb
+
+
+def _ranged(t, fleet):
+    """Before the first tick: each lane reopens its title through a
+    ranged open, from its start or its second GOP, to its end or for
+    150 packets (a short last read, then EOS before the file's end)."""
+    if t:
+        return
+    for i, s in enumerate(fleet.sessions):
+        off = (i % 2) * 188 * s.get_index(0, 18000)
+        assert s.streamer.get(s.folder(s.nav_index) + "/video.ts", off,
+                              (i // 2 % 2) * 188 * 150) == 0
+
+
+def _controls(t, fleet):
+    """Seeks, a pause and its resume, trick play and a resync between
+    ticks: lanes reopen their files, or leave and rejoin the fast path
+    with the same file open."""
+    S = fleet.sessions
+    {2: lambda: (S[0].skip(0), S[2].play_pause()),
+     3: lambda: S[1].fast_forward(),
+     4: lambda: (S[3].rewind(), S[4].resync()),
+     6: lambda: (S[2].play_pause(), S[5].skip(0)),
+     9: lambda: S[1].play_pause()}.get(t, lambda: None)()
+
+
+@pytest.mark.parametrize("act", [_ranged, _controls])
+def test_mapped_reads_match_streamer_reads(service, monkeypatch, act):
+    """The packed gather on the title mappings == the same gather on
+    Streamer.read (file_key refusing every file), tick for tick, until
+    every lane has played its stream to the end."""
+    attached = []
+    attach = TMAPS.TitleMaps._attach
+
+    def spy(self, i, st):
+        ok = attach(self, i, st)
+        attached.append(ok)
+        return ok
+    monkeypatch.setattr(TMAPS.TitleMaps, "_attach", spy)
+    fleet = _port_fleet(service, stage="full")
+    mapped = _served_run(fleet, 24, act)
+    c = fleet.counters
+    assert c["feed.mapped_bytes"] == c["feed.bytes_read"] > 0
+    n_attached = sum(attached)
+    monkeypatch.setattr(TMAPS, "file_key", lambda f: None)
+    fleet = _port_fleet(service, stage="full")
+    plain = _served_run(fleet, 24, act)
+    assert fleet.counters["feed.mapped_bytes"] == 0
+    assert not any(attached[n_attached:])
+    _assert_runs_equal(mapped, plain)
+    assert set(mapped[0][-1][3]) == {"DONE"}
+    if act is _controls:
+        # the reopened and resumed lanes attached again
+        assert n_attached >= 8 + 6
+
+
+def test_detached_lane_reads_on_after_the_mapped_bytes(service,
+                                                       monkeypatch):
+    """Lane 0's pump patched after three ticks takes it off the
+    mappings: its Streamer reads on from the byte after the last mapped
+    read, the title's bytes in order, and every lane's pictures are
+    those of a run on Streamer.read throughout."""
+    runs = []
+    for mapped in (True, False):
+        if not mapped:
+            monkeypatch.setattr(TMAPS, "file_key", lambda f: None)
+        reads, cursor = [], []
+
+        def act(t, fleet, reads=reads, cursor=cursor):
+            if t != 3:
+                return
+            s = fleet.sessions[0]
+            st = s.streamer
+            cursor.append(int(fleet._titles.pos[0])
+                          if fleet._titles.src[0] >= 0 else None)
+
+            def pump():
+                pos = st._offset + st._mark
+                assert st._file.tell() == pos
+                data = st.read(READ_CHUNK)
+                reads.append((pos, data))
+                if not data:
+                    s.feed.eos()
+                    s.eos = True
+                    return False
+                s.bytes_read += len(data)
+                s.feed.feed(data)
+                return True
+            s.pump = pump
+        fleet = _port_fleet(service, stage="full")
+        runs.append(_served_run(fleet, 20, act))
+        path = fleet.sessions[0].streamer._file.name
+        if mapped:
+            title = open(path, "rb").read()
+            first, pos = cursor[0], cursor[0]
+            assert 0 < first < len(title)
+            for p, data in reads:
+                assert p == pos and data == title[pos:pos + len(data)]
+                pos += len(data)
+            assert reads[0][0] == first and pos == len(title)
+            mapped_reads = reads
+        else:
+            assert cursor == [None] and reads == mapped_reads
+    _assert_runs_equal(*runs)

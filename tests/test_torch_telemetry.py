@@ -14,7 +14,10 @@ timer takes the place of the chain's own spans.  (The gate is simulated
 there and the ranges kept on the host clock: a CPU profiler's trace of
 the plain forms holds ~400,000 operations a tick.  One chunk of one
 tick runs under a real CPU torch.profiler, whose exported trace shows
-the same.)  The pooled chain counts its workers' feeds.  Each of the benchmark's
+the same.)  The pooled chain counts its workers' feeds.  The packed
+gather takes file:// lanes' bytes from the title mappings
+(`feed.mapped_bytes` == `feed.bytes_read`) and leaves lanes over a
+`get_rom` buffer on their streamers (`feed.mapped_bytes` 0).  Each of the benchmark's
 readers of these spans and records returns its value from a fabricated
 stretch, and nothing when the stretch's records or spans are not
 there.  On a card (gpu-marked) a chain record's stages sum to its
@@ -34,6 +37,7 @@ import torch
 from espflix_tpu_torch.runtime import telemetry as T
 from espflix_tpu_torch.runtime.player import PlayerSession
 from espflix_tpu_torch.runtime.scheduler import Fleet
+from espflix_tpu_torch.streaming.streamer import Streamer
 from espflix_tpu_torch.tools.indexer import make_service
 from espflix_tpu_torch.tools.sbc_encode import random_frame
 
@@ -54,10 +58,11 @@ def service(tmp_path_factory):
     return "file://" + d
 
 
-def _fleet(service, read: list):
+def _fleet(service, read: list | None, source: str = "file"):
     """A full-chain CPU fleet of LANES playing lanes (one SBC frame a
     tick keeps the plain PDM short) whose streamers add the bytes they
-    return to read[0]."""
+    return to read[0] (read None: the stock streamers); source "rom"
+    plays the title from a get_rom buffer."""
     f = Fleet(LANES, words_per_lane=8192, parser="pallas", output=True,
               device="cpu", audio_frames_per_tick=1)
     for i in range(LANES):
@@ -65,6 +70,11 @@ def _fleet(service, read: list):
         assert s.init_service()
         s.nav(0)
         s.play_pause()
+        if source == "rom":
+            s.play_rom(Streamer().get_url(s.folder(0) + "/video.ts"))
+        if read is None:
+            f.attach(i, s)
+            continue
 
         def counted(n, orig=s.streamer.read):
             out = orig(n)
@@ -283,6 +293,23 @@ def test_pooled_chunk_counts_its_workers_feeds(service):
     assert f.timers.n["upload"] == 1 and f.timers.n["readback"] == 1
 
 
+@pytest.mark.parametrize("source", ["file", "rom"])
+def test_mapped_bytes_count_the_mapped_reads(service, source):
+    """file:// lanes read every byte from the title mappings; lanes over
+    a get_rom buffer stay on their streamers and map nothing."""
+    f = _fleet(service, None, source)
+    for _ in range(3):
+        assert f._gather_batch_packed() is not None
+    c = f.counters
+    assert c["feed.bytes_read"] > 0 and c["feed.lane_ticks"] == 3 * LANES
+    if source == "file":
+        assert c["feed.mapped_bytes"] == c["feed.bytes_read"]
+        assert (f._titles.src >= 0).all()
+    else:
+        assert c["feed.mapped_bytes"] == 0
+        assert (f._titles.src < 0).all()
+
+
 def test_top_level_leaves_out_the_nested_spans():
     acc = {"gather_packed": 3.0, "gather.pop": 1.0, "gather.read": 1.0,
            "gather.feed": 0.5, "batch_assemble": 2.0, "upload": 1.0,
@@ -308,9 +335,11 @@ CHAIN_DEV = [dict(scan=0.010, composite=0.005, sbc=0.002, pdm=0.0016,
              dict(scan=0.011, composite=0.006, sbc=0.002, pdm=0.0014,
                   outs=0.0006, span=0.033, **{"idct+compose": 0.012})]
 FLEET_COUNTS = [{"feed.bytes_read": 14_000_000, "feed.rounds": 10,
-                 "feed.lane_ticks": 2048, "feed.underruns": 0},
+                 "feed.lane_ticks": 2048, "feed.underruns": 0,
+                 "feed.mapped_bytes": 13_900_000},
                 {"feed.bytes_read": 14_100_000, "feed.rounds": 11,
-                 "feed.lane_ticks": 2048, "feed.underruns": 4}]
+                 "feed.lane_ticks": 2048, "feed.underruns": 4,
+                 "feed.mapped_bytes": 14_100_000}]
 # name: (value over the fabricated stretch, read from records?)
 READERS = {
     "chain.scan_ms": (1e3 * 0.021 / TICKS, True),
@@ -321,6 +350,7 @@ READERS = {
     "served.read_kb": (28_100.0 / TICKS, True),
     "served.pump_rounds": (21 / TICKS, True),
     "served.underrun_pct": (100 * 4 / 4096, True),
+    "served.mapped_pct": (100 * 28_000_000 / 28_100_000, True),
     "served.readback_ms": (1e3 * 0.0025 / TICKS, False),
     "served.upload_ms": (1e3 * 0.003 / TICKS, False),
     "served.feed_read_ms": (1e3 * 0.030 / TICKS, False),
@@ -357,6 +387,19 @@ def test_reader_reads_its_spans_or_records(stretch, name):
     else:
         assert reader.read(dict(ctx, timers_s=dict(PARENT_TIMERS))) is None
         assert reader.read(dict(ctx, timers_s={})) is None
+
+
+def test_mapped_pct_reads_nothing_without_its_counter(monkeypatch):
+    """A stretch whose "fleet" records hold no feed.mapped_bytes (a
+    program that maps nothing) or fed no byte reads nothing."""
+    from espbench.manifest import Benchmark
+    reader = Benchmark().reader("served.mapped_pct")
+    for counts in ({"feed.bytes_read": 14_000_000},
+                   {"feed.bytes_read": 0, "feed.mapped_bytes": 0}):
+        monkeypatch.setattr(T, "RECORDS", deque(maxlen=256))
+        T.record("fleet", 2, counters=dict(counts))
+        T.record("fleet", 2, counters=dict(counts))
+        assert reader.read({"ticks": 4, "timers_s": dict(TIMERS)}) is None
 
 
 @pytest.mark.gpu
