@@ -45,6 +45,8 @@ in one call; ESPFLIX_BATCHED_POP=0 / ESPFLIX_PACKED_POP=0 restore the
 per-lane paths.  On the packed path a lane whose Streamer has a regular
 file open reads from a read-only mapping of the file
 (streaming/title_maps.py), one numpy gather per file a pump round.
+Key events reach the sessions between chunks through
+``Fleet.apply_keys`` (the remote's dispatch, runtime/input.dispatch_key).
 run_chunk_full_pooled runs the full chain on lanes whose sessions live
 in host worker processes (runtime/hostpool.HostPool).
 
@@ -58,12 +60,15 @@ and the tick's attach check) and gather.feed (the mapped gather and the
 feed call) inside; batch_assemble with the copy to the device, upload,
 inside; chain_enqueue, the host's enqueue of the chain; host_sync with
 the copies to the host, readback, inside (while tracing, after a
-synchronisation, so readback times the copies alone).  Fleet.counters
-holds the session feed's running totals (feed.bytes_read,
-feed.mapped_bytes, feed.rounds, feed.lane_ticks, feed.underruns), and
-each full-chain chunk traced from start to end appends a "fleet" record
-of its counts, the chain a "chain" record of its spans per stage
-(telemetry.traced reads them).
+synchronisation, so readback times the copies alone); control, an
+apply_keys call between chunks.  Fleet.counters holds the session
+feed's running totals (feed.bytes_read, feed.mapped_bytes, feed.rounds,
+feed.lane_ticks, feed.underruns, feed.trick_lane_ticks,
+feed.slow_lane_ticks, feed.attaches) and the control's (control.keys,
+control.seeks, control.seek_wait), and each full-chain chunk traced from
+start to end appends a "fleet" record of its counts (with those of a
+traced apply_keys call just before it), the chain a "chain" record of
+its spans per stage (telemetry.traced reads them).
 """
 
 from __future__ import annotations
@@ -84,6 +89,7 @@ from espflix_tpu_torch.runtime import chain as CH
 from espflix_tpu_torch.runtime import host_gather as HG
 from espflix_tpu_torch.runtime import telemetry
 from espflix_tpu_torch.runtime.events import Ev, EventLog
+from espflix_tpu_torch.runtime.input import dispatch_key
 from espflix_tpu_torch.runtime.output import OutputStage
 from espflix_tpu_torch.runtime.player import READ_CHUNK, PlayerSession, \
     State
@@ -154,6 +160,7 @@ def bucket_policy(need: int, ns_rows: int, *, steps_long: int,
 
 
 _PUMP_STATES = HG.PUMP_STATES
+_TRICK_STATES = (State.FAST_FORWARD, State.REWIND)
 
 
 def _pump_patched(s) -> bool:
@@ -203,8 +210,15 @@ class Fleet:
         self.sessions: list[PlayerSession | None] = [None] * n_lanes
         self.events = EventLog()
         self.timers = telemetry.Timers()
-        # the session feed's running totals (runtime/telemetry.py)
+        # the session feed's and the control's running totals
+        # (runtime/telemetry.py)
         self.counters: dict[str, int] = {}
+        # the counters before a traced apply_keys call, which the next
+        # chunk's "fleet" record counts from
+        self._since: dict | None = None
+        # lanes whose stream a key reopened (apply_keys) that have
+        # presented no picture since
+        self._seek_wait = np.zeros(n_lanes, bool)
         self.pal = pal
         self.parser = parser
         self._aud_op = None       # discovered channel-count group
@@ -310,6 +324,36 @@ class Fleet:
     def attach(self, lane: int, session: PlayerSession):
         self.sessions[lane] = session
 
+    # -- control: the remote's keys between chunks ------------------------
+    def apply_keys(self, keys):
+        """Apply key events between chunks: `keys` maps a lane to a key
+        code (runtime/input.KEY_*), each dispatched to the lane's session
+        as the remote's would be (input.dispatch_key; espflix.cpp:
+        941-1008), in the mapping's order.  Spans ``control``; counts the
+        keys (``control.keys``) and the seeks among them, keys after
+        which the lane's feed is a new object because its stream
+        reopened (``control.seeks``).  A lane so reopened counts a
+        lane-tick of ``control.seek_wait`` for every tick from the next
+        one up to and including the tick that presents its first picture
+        (run_chunk_full).  While a profiler records, the next chunk's
+        "fleet" record holds these counts."""
+        if self._since is None and telemetry.tracing():
+            self._since = dict(self.counters)
+        n_keys = n_seeks = 0
+        with self.timers.measure("control"):
+            for lane, key in keys.items():
+                s = self.sessions[lane]
+                if s is None:
+                    continue
+                feed = s.feed
+                dispatch_key(s, key)
+                n_keys += 1
+                if s.feed is not feed:
+                    n_seeks += 1
+                    self._seek_wait[lane] = True
+        HG.add_counts(self.counters, {"control.keys": n_keys,
+                                      "control.seeks": n_seeks})
+
     # -- fleet checkpoint/restore (SURVEY.md 5.4) -----------------------
     def snapshot(self) -> list:
         return [s.snapshot() if s is not None else None
@@ -386,15 +430,18 @@ class Fleet:
                 self._titles.release()
             return None
         span = self.timers.measure
-        playing = len(fast) + sum(s.state in _PUMP_STATES for _, s in slow)
+        n_slow = sum(s.state in _PUMP_STATES for _, s in slow)
+        playing = len(fast) + n_slow
+        trick = sum(s.state in _TRICK_STATES for _, s in fast + slow)
         n_read = n_mapped = rounds = 0
         pb = self._ensure_packed()
         tm = self._titles
         with span("gather.read"):
             mapped = [(i, s) for i, s in fast
                       if not (s.eos or _pump_patched(s))]
-            tm.sync([i for i, _ in mapped], [s.streamer for _, s in mapped],
-                    [s.feed._lane for _, s in mapped])
+            attached = tm.sync([i for i, _ in mapped],
+                               [s.streamer for _, s in mapped],
+                               [s.feed._lane for _, s in mapped])
         for s in self.sessions:
             if s is not None:
                 s.clock.tick()
@@ -524,7 +571,9 @@ class Fleet:
         HG.add_counts(self.counters, {
             "feed.bytes_read": n_read, "feed.mapped_bytes": n_mapped,
             "feed.rounds": rounds, "feed.lane_ticks": playing,
-            "feed.underruns": playing - int(pb.active.sum())})
+            "feed.underruns": playing - int(pb.active.sum()),
+            "feed.trick_lane_ticks": trick, "feed.slow_lane_ticks": n_slow,
+            "feed.attaches": attached})
         return pb.batch_dict(), pb.pts.copy(), pre_errors
 
     def _last_pop(self, i, s, checks):
@@ -1011,7 +1060,9 @@ class Fleet:
             raise ValueError("the full chain runs on the 'pallas' parser")
         n_sh = self.mesh.shape["streams"] if self.mesh is not None else 0
         F = self.audio_F
-        counted = dict(self.counters) if telemetry.tracing() else None
+        counted = (self._since or dict(self.counters)) \
+            if telemetry.tracing() else None
+        self._since = None
         gathered = []
         xs_t = []
         dup_any = np.zeros(self.n, bool)
@@ -1141,6 +1192,11 @@ class Fleet:
         results = []
         for t, (video_lanes, pts, pre_errors, starved) in \
                 enumerate(gathered):
+            # lanes waiting for their first picture since a seek, those
+            # that present it now included
+            HG.add_counts(self.counters,
+                          {"control.seek_wait": self._seek_wait.sum()})
+            self._seek_wait[video_lanes] = False
             errors = errs[t].copy()
             for i in np.nonzero(video_lanes)[0]:
                 if self.sessions[i] is not None:

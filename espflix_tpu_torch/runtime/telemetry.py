@@ -17,8 +17,18 @@ CUDA event or synchronises: only the counters count.
   ``feed.lane_ticks`` (lanes playing, fast-forwarding or rewinding at
   a tick's start) and
   ``feed.underruns`` (those of them that ended the tick with no
-  picture), added once a tick (runtime/host_gather.add_counts);
-  ``delta`` is a stretch's share of them.
+  picture), added once a tick (runtime/host_gather.add_counts); the
+  packed gather adds ``feed.trick_lane_ticks`` (lanes fast-forwarding
+  or rewinding at a tick's start), ``feed.slow_lane_ticks`` (playing
+  lanes off the native fast path, as a lane whose session fell back to
+  the Python feed is) and ``feed.attaches`` (lanes the tick's check
+  attached to a title mapping).  ``Fleet.apply_keys``, the remote's
+  keys between chunks, spans ``control`` and counts ``control.keys``
+  (keys applied), ``control.seeks`` (those after which the lane's
+  stream reopened) and ``control.seek_wait`` (lane-ticks from a seek up
+  to and including the lane's first presented picture, counted where
+  run_chunk_full presents a chunk's results).  ``delta`` is a
+  stretch's share of them.
 - ``ChainSpans``: the chain's spans per stage for one FullChain call
   while tracing (runtime/chain.py): a mark before the first tick and at
   the end of each stage (CUDA events on a card, the host clock on the
@@ -31,7 +41,9 @@ CUDA event or synchronises: only the counters count.
 - ``RECORDS``: a bounded process-wide ring of chunk records, appended
   only while tracing: ``{"kind": "fleet" | "chain", "ticks": K,
   "counters": {...} | None, "device": {...} | None}``.  A "fleet"
-  record holds a full-chain chunk's counter deltas, a "chain" record
+  record holds a full-chain chunk's counter deltas (from a traced
+  ``apply_keys`` call just before the chunk, when there was one), a
+  "chain" record
   the chain's seconds per stage (STAGES, "outs") and its first-to-last
   span ("span"), resolved when read.  ``traced(kind, ticks)`` returns
   the newest records of a kind whose ticks sum to `ticks`, which is how

@@ -78,8 +78,10 @@ class TitleMaps:
         """Once a tick, before the pump rounds: `lanes` may read from
         mappings (with their Streamers and native feed lanes).  Attaches
         those not attached, or whose Streamer or file changed, and
-        detaches every other attached lane."""
+        detaches every other attached lane.  Returns how many lanes it
+        attached."""
         keep = np.zeros(len(self.src), bool)
+        attached = 0
         for i, st in zip(lanes, streamers):
             f = self._f[i]
             if f is not None:
@@ -88,10 +90,12 @@ class TitleMaps:
                     continue
                 self._detach(i)
             keep[i] = self._attach(i, st)
+            attached += keep[i]
         if len(lanes):
             self.nlane[lanes] = feeds
         for i in np.flatnonzero((self.src >= 0) & ~keep):
             self._detach(int(i))
+        return int(attached)
 
     def release(self):
         """Detach every lane (before a gather that reads the Streamers)."""

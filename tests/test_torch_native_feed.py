@@ -309,8 +309,9 @@ def test_packed_policies_log_the_classic_events(service, monkeypatch, case):
 def _served_run(fleet, ticks, act=None):
     """run_chunk_full's host gather, tick by tick: per tick the batch
     dict, pts, pre_errors, session states and SBC rows; then the events
-    and the feed counters but feed.mapped_bytes.  act(t, fleet) runs
-    before tick t (control between ticks, as between chunks)."""
+    and the feed counters but feed.mapped_bytes and feed.attaches (the
+    title mappings' own).  act(t, fleet) runs before tick t (control
+    between ticks, as between chunks)."""
     out = []
     for t in range(ticks):
         if act is not None:
@@ -319,7 +320,7 @@ def _served_run(fleet, ticks, act=None):
         sbc = fleet._gather_audio_arrays(fleet.audio_F)[:4]
         out.append((b, pts, pre, states, [a.copy() for a in sbc]))
     counts = {k: v for k, v in fleet.counters.items()
-              if k != "feed.mapped_bytes"}
+              if k not in ("feed.mapped_bytes", "feed.attaches")}
     return out, _events(fleet), counts
 
 

@@ -14,7 +14,9 @@ timer takes the place of the chain's own spans.  (The gate is simulated
 there and the ranges kept on the host clock: a CPU profiler's trace of
 the plain forms holds ~400,000 operations a tick.  One chunk of one
 tick runs under a real CPU torch.profiler, whose exported trace shows
-the same.)  The pooled chain counts its workers' feeds.  The packed
+the same.)  Under a real profiler too, a control call between chunks
+(Fleet.apply_keys) opens `fleet.control` and the next chunk's record
+carries its counts.  The pooled chain counts its workers' feeds.  The packed
 gather takes file:// lanes' bytes from the title mappings
 (`feed.mapped_bytes` == `feed.bytes_read`) and leaves lanes over a
 `get_rom` buffer on their streamers (`feed.mapped_bytes` 0).  Each of the benchmark's
@@ -270,6 +272,30 @@ def test_a_profiled_chunk_exports_its_spans(profiled):
     (fl,), (ch,) = profiled.fleet, profiled.chain
     assert fl["counters"]["feed.lane_ticks"] == LANES
     assert ch["device"]["span"] > 0
+
+
+def test_a_profiled_control_call_spans_and_counts(service, tmp_path):
+    """Fleet.apply_keys under a real torch.profiler: the range
+    fleet.control opens, and the next chunk's "fleet" record carries the
+    control's and the gather's new counters: the key, its seek, the
+    lane's wait for its first fast-forward picture, its trick
+    lane-tick and its attach to the forward stream's mapping."""
+    from espflix_tpu_torch.runtime.input import KEY_RIGHT
+    f = _fleet(service, None)
+    f.run_chunk_full(1)
+    with torch.profiler.profile(activities=CPU) as prof:
+        f.apply_keys({1: KEY_RIGHT})
+        rs = f.run_chunk_full(1)
+    names = [r[0] for r in _ranges(prof, tmp_path / "t.json")]
+    assert names.count("fleet.control") == 1
+    (fl,) = T.traced("fleet", 1)
+    c = fl["counters"]
+    assert rs[0].video_lanes[1]
+    assert (c["control.keys"], c["control.seeks"],
+            c["control.seek_wait"]) == (1, 1, 1)
+    assert c["feed.trick_lane_ticks"] == 1 and c["feed.attaches"] == 1
+    assert c["feed.slow_lane_ticks"] == 0
+    assert c["feed.lane_ticks"] == LANES
 
 
 def test_pooled_chunk_counts_its_workers_feeds(service):
