@@ -44,7 +44,8 @@ run_chunk_full pops them straight into the batch layout
 in one call; ESPFLIX_BATCHED_POP=0 / ESPFLIX_PACKED_POP=0 restore the
 per-lane paths.  On the packed path a lane whose Streamer has a regular
 file open reads from a read-only mapping of the file
-(streaming/title_maps.py), one numpy gather per file a pump round.
+(streaming/title_maps.py), and those lanes' pops, reads and feeds run
+in one threaded native call a tick (streaming/native_pump.py).
 Key events reach the sessions between chunks through
 ``Fleet.apply_keys`` (the remote's dispatch, runtime/input.dispatch_key).
 run_chunk_full_pooled runs the full chain on lanes whose sessions live
@@ -54,10 +55,11 @@ Frames and SBC history stay on the fleet's device (CUDA by default).
 
 Fleet.timers (runtime/telemetry.Timers; profiler ranges ``fleet.<name>``
 while a torch.profiler records) spans a full-chain chunk's host work:
-gather_packed (and gather on the classic path) with a pump round's
-gather.pop, gather.read (the Python reads of the lanes off the mappings,
-and the tick's attach check) and gather.feed (the mapped gather and the
-feed call) inside; batch_assemble with the copy to the device, upload,
+gather_packed (and gather on the classic path) with gather.pop (the
+mapped lanes' native pump call, and a pump round's pop of the other
+lanes), gather.read (the Python reads of the lanes off the mappings, the
+tick's attach check and the EOS branch) and gather.feed (a round's feed
+call) inside; batch_assemble with the copy to the device, upload,
 inside; chain_enqueue, the host's enqueue of the chain; host_sync with
 the copies to the host, readback, inside (while tracing, after a
 synchronisation, so readback times the copies alone); control, an
@@ -94,6 +96,7 @@ from espflix_tpu_torch.runtime.output import OutputStage
 from espflix_tpu_torch.runtime.player import READ_CHUNK, PlayerSession, \
     State
 from espflix_tpu_torch.streaming import native_feed as NF
+from espflix_tpu_torch.streaming import native_pump as NP
 from espflix_tpu_torch.streaming import title_maps as TMAP
 
 
@@ -160,6 +163,7 @@ def bucket_policy(need: int, ns_rows: int, *, steps_long: int,
 
 
 _PUMP_STATES = HG.PUMP_STATES
+_MAX_PUMPS = 64                 # PlayerSession.next_picture's max_pumps
 _TRICK_STATES = (State.FAST_FORWARD, State.REWIND)
 
 
@@ -414,14 +418,19 @@ class Fleet:
 
         A fast lane whose pump is not overridden and whose Streamer has
         a regular file open reads from a read-only mapping of that file
-        (streaming/title_maps.py; titles are immutable while served):
-        the attach check runs once a tick, and a round's mapped reads
-        are one numpy gather per file, with no Python per lane.  Other
-        lanes read through their Streamer or their patched pump.  Each
-        pump round spans its pop ("gather.pop"), the Python reads of
-        the unmapped lanes ("gather.read", which also holds the tick's
-        attach check) and the mapped gather with the feed call
-        ("gather.feed"); the tick's feed counts go to Fleet.counters."""
+        (streaming/title_maps.py; titles are immutable while served),
+        checked once a tick.  Those lanes run their pump rounds in ONE
+        threaded native call (streaming/native_pump.py, span
+        "gather.pop"): pops, mapped reads and feeds, each lane on its
+        own, stopping at a picture, a capacity rc or its title's end;
+        the results then take the same vectorised path as a round's
+        pops.  The other lanes read through their Streamer or their
+        patched pump, round by round: each round spans its pop
+        ("gather.pop"), the Python reads ("gather.read", which also
+        holds the tick's attach check and the EOS branch of lanes at
+        their end) and the feed call ("gather.feed").  The tick's feed
+        counts go to Fleet.counters; ``feed.rounds`` is the most pops a
+        lane made."""
         if not (self._batched_pop and self._packed_pop and NF.available()):
             return None
         fast, slow = HG.fast_lanes(self.sessions)
@@ -450,68 +459,48 @@ class Fleet:
         # (lane, session, width, height, payload bytes, slices, picture
         # to merge or None when the native pop already consumed it)
         checks = []
-        pending = fast
-        for _ in range(64):                  # next_picture max_pumps
+        on_map = tm.src[[i for i, _ in fast]] >= 0
+        native = [fast[k] for k in np.flatnonzero(on_map)]
+        pending = [fast[k] for k in np.flatnonzero(~on_map)]
+        if native:
+            # the lanes on a title mapping: ONE threaded native call runs
+            # each one's pump rounds (streaming/native_pump.py)
+            slots_n = np.fromiter((i for i, _ in native), np.int32,
+                                  len(native))
+            with span("gather.pop"):
+                r = NP.get_pump().run(pb, tm, slots_n, _MAX_PUMPS)
+            rounds = int(r.rounds.max())
+            n_read = n_mapped = int(r.fed.sum())
+            self._take_pops(pb, native, slots_n,
+                            tm.nlane[slots_n].astype(np.int64), r.rc,
+                            r.meta, r.iq8, r.nq8, checks)
+            ends = np.flatnonzero(r.ended)
+            if len(ends):
+                # lanes at their title's end: the EOS branch
+                with span("gather.read"):
+                    for k in ends:
+                        i, s = native[k]
+                        s.feed.eos()
+                        s.eos = True
+                        self._last_pop(i, s, checks)
+        for py_rounds in range(1, _MAX_PUMPS + 1):
             if not pending:
                 break
-            rounds += 1
+            rounds = max(rounds, py_rounds)
             feeds = [s.feed for _, s in pending]
             slots = [i for i, _ in pending]
             with span("gather.pop"):
                 rc, meta, iq8, nq8 = NF.pop_many_packed(pb, feeds, slots)
-            slots_a = np.asarray(slots, np.int32)
-            got = rc == 1
-            if got.any():
-                # vectorised happy path: rc == 1 with geometry and
-                # capacity in bounds -> numpy fancy-assigns
-                assert (meta[got, NF.M_WIDTH] > 0).all(), \
-                    "picture before sequence header"
-                okg = ((meta[:, NF.M_WIDTH] == self.width)
-                       & (meta[:, NF.M_HEIGHT] == self.height))
-                okc = HG.fits(meta[:, NF.M_PAYLOAD_LEN],
-                              meta[:, NF.M_NSLICES], self.words_per_lane,
-                              self.mb_h)
-                good = got & okg & okc
-                nlanes = np.fromiter((f._lane for f in feeds), np.int64,
-                                     len(feeds))
-                keys = (nlanes << 44) | meta[:, NF.M_SEQ_COUNTER]
-                for k in np.flatnonzero(good & (pb.qkey[slots_a] != keys)):
-                    m = meta[k]
-                    pb.set_queues(slots[k], feeds[k], bool(m[NF.M_HAS_IQ]),
-                                  bool(m[NF.M_HAS_NQ]), iq8[k], nq8[k],
-                                  int(m[NF.M_SEQ_COUNTER]),
-                                  qkey=int(keys[k]))
-                si = slots_a[good]
-                pb.pic_type[si] = meta[good, NF.M_PTYPE]
-                pb.full_pel[si] = meta[good, NF.M_FULL_PEL]
-                pb.r_size[si] = np.maximum(meta[good, NF.M_R_SIZE], 0)
-                pb.n_slices[si] = meta[good, NF.M_NSLICES]
-                pb.active[si] = True
-                pb.pts[si] = meta[good, NF.M_PTS]
-                for k in np.flatnonzero(got & ~(okg & okc)):
-                    # consumed but rejected: the row holds its words, the
-                    # lane stays inactive as in make_picture_batch
-                    m = meta[k]
-                    pb.n_words[slots[k]] = 0
-                    checks.append((slots[k], pending[k][1],
-                                   int(m[NF.M_WIDTH]), int(m[NF.M_HEIGHT]),
-                                   int(m[NF.M_PAYLOAD_LEN]),
-                                   int(m[NF.M_NSLICES]), None))
-            for k in np.flatnonzero(rc < 0):
-                # capacity: the picture was NOT consumed; pop it through
-                # the growable per-lane path
-                i, s = pending[k]
-                p = s.feed.pop_picture()
-                if p is not None:
-                    checks.append(self._check_of(i, s, p))
-            starved = rc == 0
-            on_map = tm.src[slots_a] >= 0
+            self._take_pops(pb, pending, np.asarray(slots, np.int32),
+                            np.fromiter((f._lane for f in feeds), np.int64,
+                                        len(feeds)),
+                            rc, meta, iq8, nq8, checks)
             keep = np.zeros(len(pending), bool)   # pumped: pop again
-            # one streamer read per starved unmapped lane; a patched
-            # pump() stays the per-lane override point
-            bat_l, bat_d = [], []
+            # one streamer read per starved lane; a patched pump() stays
+            # the per-lane override point
+            bat_f, bat_d = [], []
             with span("gather.read"):
-                for k in np.flatnonzero(starved & ~on_map):
+                for k in np.flatnonzero(rc == 0):
                     i, s = pending[k]
                     if _pump_patched(s):
                         b0 = s.bytes_read
@@ -523,40 +512,17 @@ class Fleet:
                     elif not s.eos:
                         data = s.streamer.read(READ_CHUNK)
                         if data:
-                            bat_l.append(s.feed._lane)
+                            bat_f.append(s.feed)
                             bat_d.append(data)
                             keep[k] = True
                             continue
                         s.feed.eos()
                         s.eos = True
                     self._last_pop(i, s, checks)
-            # the mapped lanes' reads, then ONE native feed call for the
-            # round (sf_feed_many)
+            # ONE native feed call for the round (sf_feed_many)
             with span("gather.feed"):
-                buf = tm.buf
-                n_py = sum(map(len, bat_d))
-                if n_py:
-                    buf[:n_py] = np.frombuffer(b"".join(bat_d), np.uint8)
-                mk = np.flatnonzero(starved & on_map)
-                order, lens, n_map = tm.gather(slots_a[mk], n_py)
-                fed = mk[order]
-                keep[fed] = True
-                NF.feed_array(
-                    np.concatenate([np.asarray(bat_l, np.int32),
-                                    tm.nlane[slots_a[fed]]]), buf,
-                    np.concatenate([np.fromiter(map(len, bat_d), np.int64,
-                                                len(bat_d)), lens[order]]))
-            n_read += n_py + n_map
-            n_mapped += n_map
-            ends = mk[lens == 0]
-            if len(ends):
-                # mapped lanes at their title's end: the EOS branch
-                with span("gather.read"):
-                    for k in ends:
-                        i, s = pending[k]
-                        s.feed.eos()
-                        s.eos = True
-                        self._last_pop(i, s, checks)
+                NF.feed_many(bat_f, bat_d)
+            n_read += sum(map(len, bat_d))
             pending = [pending[k] for k in np.flatnonzero(keep)]
         read0 = HG.read_total(s for _, s in slow)
         for i, s in slow:
@@ -575,6 +541,54 @@ class Fleet:
             "feed.trick_lane_ticks": trick, "feed.slow_lane_ticks": n_slow,
             "feed.attaches": attached})
         return pb.batch_dict(), pb.pts.copy(), pre_errors
+
+    def _take_pops(self, pb, lanes, slots_a, nlanes, rc, meta, iq8, nq8,
+                   checks):
+        """The packed pops' results for `lanes` ((lane, session) at fleet
+        slots `slots_a`, native feed lanes `nlanes`): rc 1 with geometry
+        and capacity in bounds goes to pb's vectors at once; a picture
+        rejected, or one the packed pop could not hold (rc < 0, popped
+        here through the growable per-lane path), goes to `checks`."""
+        got = rc == 1
+        if got.any():
+            assert (meta[got, NF.M_WIDTH] > 0).all(), \
+                "picture before sequence header"
+            okg = ((meta[:, NF.M_WIDTH] == self.width)
+                   & (meta[:, NF.M_HEIGHT] == self.height))
+            okc = HG.fits(meta[:, NF.M_PAYLOAD_LEN], meta[:, NF.M_NSLICES],
+                          self.words_per_lane, self.mb_h)
+            good = got & okg & okc
+            keys = (nlanes << 44) | meta[:, NF.M_SEQ_COUNTER]
+            for k in np.flatnonzero(good & (pb.qkey[slots_a] != keys)):
+                m = meta[k]
+                pb.set_queues(int(slots_a[k]), lanes[k][1].feed,
+                              bool(m[NF.M_HAS_IQ]), bool(m[NF.M_HAS_NQ]),
+                              iq8[k], nq8[k], int(m[NF.M_SEQ_COUNTER]),
+                              qkey=int(keys[k]))
+            si = slots_a[good]
+            pb.pic_type[si] = meta[good, NF.M_PTYPE]
+            pb.full_pel[si] = meta[good, NF.M_FULL_PEL]
+            pb.r_size[si] = np.maximum(meta[good, NF.M_R_SIZE], 0)
+            pb.n_slices[si] = meta[good, NF.M_NSLICES]
+            pb.active[si] = True
+            pb.pts[si] = meta[good, NF.M_PTS]
+            for k in np.flatnonzero(got & ~(okg & okc)):
+                # consumed but rejected: the row holds its words, the
+                # lane stays inactive as in make_picture_batch
+                m = meta[k]
+                i = int(slots_a[k])
+                pb.n_words[i] = 0
+                checks.append((i, lanes[k][1], int(m[NF.M_WIDTH]),
+                               int(m[NF.M_HEIGHT]),
+                               int(m[NF.M_PAYLOAD_LEN]),
+                               int(m[NF.M_NSLICES]), None))
+        for k in np.flatnonzero(rc < 0):
+            # capacity: the picture was NOT consumed; pop it through the
+            # growable per-lane path
+            i, s = lanes[k]
+            p = s.feed.pop_picture()
+            if p is not None:
+                checks.append(self._check_of(i, s, p))
 
     def _last_pop(self, i, s, checks):
         """A lane that pumped nothing: its last picture to check, or

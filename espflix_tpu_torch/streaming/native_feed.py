@@ -314,25 +314,16 @@ def feed_many(feeds, datas):
     (the pump's streamer.read result) into its native lane.  All
     feeds share one pool; empty chunks must be filtered by the caller
     (EOS is a per-lane state change, not a feed)."""
-    feed_array(np.fromiter((f._lane for f in feeds), np.int32, len(feeds)),
-               np.frombuffer(b"".join(datas), np.uint8),
-               np.fromiter(map(len, datas), np.int64, len(datas)))
-
-
-def feed_array(lanes, buf, sizes):
-    """feed_many over one buffer: ONE sf_feed_many call pushes the next
-    sizes[k] bytes of `buf` (C-contiguous uint8, the chunks back to
-    back) into native lane lanes[k] of the process's FeedPool."""
-    n = len(lanes)
+    n = len(feeds)
     if n == 0:
         return
-    assert buf.flags.c_contiguous and buf.dtype == np.uint8
-    pool = get_pool()
-    lanes = np.ascontiguousarray(lanes, np.int32)
+    pool = feeds[0]._pool
+    lanes = np.fromiter((f._lane for f in feeds), np.int32, n)
     offs = np.zeros(n + 1, np.int64)
-    np.cumsum(sizes, out=offs[1:])
-    pool.L.sf_feed_many(pool.handle, lanes.ctypes.data, n,
-                        ctypes.cast(buf.ctypes.data, ctypes.c_char_p),
+    for k, d in enumerate(datas):
+        offs[k + 1] = offs[k] + len(d)
+    buf = b"".join(datas)
+    pool.L.sf_feed_many(pool.handle, lanes.ctypes.data, n, buf,
                         offs.ctypes.data)
 
 

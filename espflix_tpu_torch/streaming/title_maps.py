@@ -2,8 +2,9 @@
 
 Fleet._gather_batch_packed (runtime/scheduler.py) serves the pump reads
 of a lane whose Streamer has a regular file open from a read-only
-mapping of that file, in place of ``Streamer.read``: one numpy gather
-per mapped file a pump round, no syscall and no ``bytes`` per lane.
+mapping of that file, in place of ``Streamer.read``: the native pump
+(streaming/native_pump.py) feeds straight from the mapping at the
+lane's cursor, with no syscall and no ``bytes`` per lane.
 Every lane on one file shares its mapping, keyed by the file's
 (st_dev, st_ino, st_size, st_mtime_ns); a mapping goes when its last
 lane leaves.
@@ -57,8 +58,9 @@ def _mapped_file(st):
 
 
 class TitleMaps:
-    """The mapped files and, per fleet lane, its mapping, cursor and end
-    (numpy arrays; ``src`` -1 where the lane is not attached)."""
+    """The mapped files and, per fleet lane, its mapping, the mapping's
+    address, its cursor and end (numpy arrays; ``src`` -1 where the
+    lane is not attached)."""
 
     def __init__(self, n_lanes: int, chunk: int):
         self.chunk = chunk
@@ -66,13 +68,12 @@ class TitleMaps:
         self.pos = np.zeros(n_lanes, np.int64)      # absolute position
         self.end = np.zeros(n_lanes, np.int64)      # absolute end
         self.nlane = np.zeros(n_lanes, np.int32)    # native feed lane
+        self.base = np.zeros(n_lanes, np.uint64)    # mapping's address
         self._st = [None] * n_lanes     # the Streamer attached from
         self._f = [None] * n_lanes      # and its file object then
         self._ids = {}                  # file key -> mapping id
-        self._maps = {}                 # id -> [flat bytes, rows, key, lanes]
+        self._maps = {}                 # id -> [flat bytes, key, lanes]
         self._next = 0
-        # a pump round's bytes, at most a chunk a lane
-        self.buf = np.empty(n_lanes * chunk, np.uint8)
 
     def sync(self, lanes, streamers, feeds):
         """Once a tick, before the pump rounds: `lanes` may read from
@@ -114,18 +115,13 @@ class TitleMaps:
             flat = np.frombuffer(mmap.mmap(f.fileno(), 0,
                                            access=mmap.ACCESS_READ),
                                  np.uint8)
-            rows = None
-            if len(flat) >= self.chunk:
-                # row p is the chunk at byte p (rows overlap)
-                rows = np.lib.stride_tricks.as_strided(
-                    flat, (len(flat) - self.chunk + 1, self.chunk), (1, 1),
-                    writeable=False)
             self._ids[key] = mid
-            self._maps[mid] = [flat, rows, key, 0]
+            self._maps[mid] = [flat, key, 0]
         m = self._maps[mid]
-        m[3] += 1
+        m[2] += 1
         pos = st._offset + st._mark
         self.src[i] = mid
+        self.base[i] = m[0].ctypes.data
         self.pos[i] = pos
         self.end[i] = min(max(st._offset + st._content_length, pos),
                           len(m[0]))
@@ -142,37 +138,8 @@ class TitleMaps:
             f.seek(pos)
         self._st[i] = self._f[i] = None
         self.src[i] = -1
+        self.base[i] = 0
         m = self._maps[mid]
-        m[3] -= 1
-        if m[3] == 0:
-            del self._ids[m[2]], self._maps[mid]
-
-    def gather(self, idx, start: int = 0):
-        """A pump round's reads for the attached lanes `idx`: each
-        lane's next min(chunk, end - pos) bytes, back to back in ``buf``
-        from byte `start`, one fancy-indexed gather per mapping (short
-        tails one by one).  Advances the cursors.  Returns (order, lens,
-        nbytes): `lens` the bytes each lane of `idx` got (0 at its end),
-        `order` the positions in `idx` of the lanes that got bytes, in
-        the order their bytes lie in ``buf``, and their total."""
-        c = self.chunk
-        pos = self.pos[idx]
-        lens = np.clip(self.end[idx] - pos, 0, c)
-        src = self.src[idx]
-        full = np.flatnonzero(lens == c)
-        full = full[np.argsort(src[full], kind="stable")]
-        o = start
-        # np.take would first copy the overlapping row view whole
-        for grp in np.split(full, np.flatnonzero(np.diff(src[full])) + 1):
-            if len(grp):
-                rows = self._maps[int(src[grp[0]])][1]
-                m = len(grp) * c
-                self.buf[o:o + m].reshape(-1, c)[:] = rows[pos[grp]]
-                o += m
-        tails = np.flatnonzero((lens > 0) & (lens < c))
-        for k in tails:
-            n, p = int(lens[k]), int(pos[k])
-            self.buf[o:o + n] = self._maps[int(src[k])][0][p:p + n]
-            o += n
-        self.pos[idx] = pos + lens
-        return np.concatenate([full, tails]), lens, o - start
+        m[2] -= 1
+        if m[2] == 0:
+            del self._ids[m[1]], self._maps[mid]

@@ -12,24 +12,21 @@ core/vlc_tables.py copy (``luts_header()``, byte for byte gen_luts.py's
 output; a test pins that), copies oracle/*.cpp beside it into
 ``<repo>/build/oracle-<hash>/`` (keyed by a hash of the sources, the
 header and the flags) and compiles them there with g++, one process a
-source, at first use.
+source, at first use (utils/hostbuild.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import numpy as np
 
 from espflix_tpu_torch.core import vlc_tables as V
+from espflix_tpu_torch.utils import hostbuild
 
 ORACLE = Path(__file__).resolve().parent.parent.parent / "oracle"
-BUILD_ROOT = Path(__file__).resolve().parent.parent.parent / "build"
+BUILD_ROOT = hostbuild.BUILD_ROOT
 # oracle/Makefile's flags
 CXXFLAGS = ("-O2", "-fPIC", "-Wall", "-Wextra", "-fno-strict-aliasing",
             "-fwrapv")
@@ -71,45 +68,16 @@ def sources() -> list[Path]:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXXFLAGS).encode())
-    h.update(luts_header().encode())
-    for p in sources():
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    return BUILD_ROOT / f"oracle-{h.hexdigest()[:16]}" / "liboracle.so"
+    return hostbuild.library_path("oracle", "liboracle.so", sources(),
+                                  CXXFLAGS, {"vlc_luts.h": luts_header()})
 
 
 def build() -> Path:
     """Compile oracle/*.cpp with the port's vlc_luts.h unless the
     library for these sources exists; returns its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError("no C++ compiler (g++) on PATH")
-    work = Path(tempfile.mkdtemp(dir=out.parent))
-    try:
-        (work / "vlc_luts.h").write_text(luts_header())
-        jobs = []
-        for src in sources():
-            shutil.copy(src, work / src.name)
-            cmd = [cxx, *CXXFLAGS, "-c", src.name, "-o", f"{src.stem}.o"]
-            jobs.append((cmd, subprocess.Popen(
-                cmd, cwd=work, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True)))
-        failed = [f"{' '.join(cmd)}\n{proc.communicate()[1]}"
-                  for cmd, proc in jobs if proc.wait() != 0]
-        if failed:
-            raise RuntimeError("g++ failed:\n" + "\n".join(failed))
-        subprocess.run([cxx, "-shared", "-o", "lib.so",
-                        *sorted(p.name for p in work.glob("*.o"))],
-                       cwd=work, check=True, capture_output=True)
-        (work / "lib.so").replace(out)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    return out
+    return hostbuild.shared_library("oracle", "liboracle.so", sources(),
+                                    CXXFLAGS,
+                                    {"vlc_luts.h": luts_header()})
 
 
 def lib() -> ctypes.CDLL:

@@ -18,7 +18,15 @@ and the JAX package's native feed.
     batches, pts, flags, states, SBC rows, events and feed counts --
     from ranged opens, through seeks, pauses and trick play, to the
     titles' ends; a lane taken off the mappings reads on from the byte
-    after the last mapped read.
+    after the last mapped read;
+  * the native pump (streaming/native_pump.py): the packed gather with
+    the mapped lanes' pump rounds in one threaded native call gives
+    what the round loop on Streamer.read gives -- batches, pts, flags,
+    states, SBC rows, events and every feed counter but the mappings'
+    own -- in plain play, with lanes ending mid-tick, trick lanes
+    beside one-round lanes, seeks, oversize pictures and lanes off the
+    mappings in the same tick; on one thread or many, more than the
+    host has cores; a failed build of the pump raises.
 
 Exact equality throughout (bytes and integers).  The port's feeds and
 the JAX package's share native/libespflix_native.so, each with its own
@@ -26,6 +34,7 @@ FeedPool.
 """
 
 import gc
+import threading
 
 import numpy as np
 import pytest
@@ -39,7 +48,9 @@ from espflix_tpu_torch.runtime import scheduler as TSCH
 from espflix_tpu_torch.runtime import session as TSES
 from espflix_tpu_torch.runtime.player import READ_CHUNK
 from espflix_tpu_torch.streaming import native_feed as TNF
+from espflix_tpu_torch.streaming import native_pump as TNP
 from espflix_tpu_torch.streaming import title_maps as TMAPS
+from espflix_tpu_torch.streaming.streamer import Streamer
 from espflix_tpu_torch.tools import serve_scenario as TSS
 
 torch.set_num_threads(1)
@@ -434,3 +445,137 @@ def test_detached_lane_reads_on_after_the_mapped_bytes(service,
         else:
             assert cursor == [None] and reads == mapped_reads
     _assert_runs_equal(*runs)
+
+
+# ---- the native pump -----------------------------------------------------
+
+def _oversize(t, fleet):
+    """Lanes hold 3,456 words: of the I pictures (13.4-13.9 KB) those
+    past 13,808 bytes do not fit the packed pop (rc < 0; LANE_OVERSIZE,
+    then a resync), the others play."""
+    if t == 0:
+        fleet.words_per_lane = 3456
+
+
+def _mixed(t, fleet):
+    """Lanes off the mappings beside mapped ones from the first tick: a
+    patched pump (lane 0), a get_rom buffer (lane 3) and a Streamer
+    whose read is overridden (lane 6)."""
+    if t:
+        return
+    S = fleet.sessions
+    S[0].pump = lambda orig=S[0].pump: orig()
+    S[3].play_rom(Streamer().get_url(S[3].folder(S[3].nav_index)
+                                     + "/video.ts"))
+    st = S[6].streamer
+    st.read = lambda n, orig=st.read: orig(n)
+
+
+def _pump_runs(service, monkeypatch, act, threads=3):
+    """The packed gather's run on the native pump (`threads` threads a
+    call) and on the round loop over Streamer.read (file_key refusing
+    every file); the pump's calls, as (lanes, threads, capacity rcs,
+    lanes ended)."""
+    calls = []
+    run = TNP.Pump.run
+
+    def spy(self, *a, **kw):
+        r = run(self, *a, **kw)
+        calls.append((len(r.rc), r.threads, int((r.rc < 0).sum()),
+                      int(r.ended.sum())))
+        return r
+    monkeypatch.setattr(TNP.Pump, "run", spy)
+    with monkeypatch.context() as mp:
+        mp.setattr(TNP, "_threads", lambda n: threads)
+        pumped = _served_run(_port_fleet(service, stage="full"), 24, act)
+    n_calls = len(calls)
+    with monkeypatch.context() as mp:
+        mp.setattr(TMAPS, "file_key", lambda f: None)
+        plain = _served_run(_port_fleet(service, stage="full"), 24, act)
+    assert len(calls) == n_calls        # nothing mapped, no pump call
+    return pumped, plain, calls
+
+
+@pytest.mark.parametrize("act", [None, _ranged, _controls, _oversize,
+                                 _mixed])
+def test_native_pump_matches_the_round_loop(service, monkeypatch, act):
+    """The mapped lanes' pump rounds in one threaded native call == the
+    round loop on Streamer.read (every feed counter but the mappings'),
+    tick for tick, until every lane has played its stream to the end."""
+    pumped, plain, calls = _pump_runs(service, monkeypatch, act)
+    _assert_runs_equal(pumped, plain)
+    if act is not _oversize:        # a resync plays its title on
+        assert set(pumped[0][-1][3]) == {"DONE"}
+    assert any(t > 1 for _, t, *_ in calls)
+    # lanes ran into their streams' ends inside the pump
+    assert sum(e for *_, e in calls) > 0
+    ev = pumped[1]
+    if act is _oversize:
+        assert sum(x for _, _, x, _ in calls) >= 2
+        assert sum(e[0] == "LANE_OVERSIZE" for e in ev) >= 2
+    if act is _mixed:
+        # 5 of the 8 lanes on the mappings
+        assert all(n == 5 for n, *_ in calls[:3])
+
+
+def _threaded(fn, timeout=120):
+    """fn() on a thread of its own, joined within `timeout` seconds."""
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()), daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), "the pump did not return"
+    return out[0]
+
+
+def _staggered(t, fleet):
+    """Lanes start 0-10 pictures into their titles (so no two lanes'
+    pops look alike), then _controls' seeks and trick play."""
+    if t == 0:
+        for i, s in enumerate(fleet.sessions):
+            for _ in range(i % 11):
+                assert s.next_picture() is not None
+    _controls(t, fleet)
+
+
+@pytest.mark.parametrize("threads", [1, 4, 48])
+def test_native_pump_threads_give_one_result(service, monkeypatch,
+                                             threads):
+    """256 lanes at staggered places, through seeks and trick play, on 1,
+    4 or 48 threads a call (48: more than the host has cores) give the
+    single-threaded round loop's run on Streamer.read, and each call
+    returns."""
+    runs, took = [], []
+    run = TNP.Pump.run
+
+    def spy(self, *a, **kw):
+        r = run(self, *a, **kw)
+        took.append((len(r.rc), r.threads))
+        return r
+    for mapped in (True, False):
+        with monkeypatch.context() as mp:
+            if mapped:
+                mp.setattr(TNP, "_threads", lambda n: threads)
+                mp.setattr(TNP.Pump, "run", spy)
+            else:
+                mp.setattr(TMAPS, "file_key", lambda f: None)
+            fleet = _port_fleet(service, lanes=256, stage="full")
+            runs.append(_threaded(lambda: _served_run(fleet, 24,
+                                                      _staggered)))
+    _assert_runs_equal(*runs)
+    assert took[0] == (256, threads)
+    assert all(t == min(threads, n) for n, t in took)
+
+
+def test_a_failed_pump_build_raises(service, monkeypatch):
+    """Where the pump library cannot be built, the packed gather of
+    mapped lanes raises the build's error: it does not serve them some
+    other way."""
+    def broken():
+        raise RuntimeError("g++ failed")
+    monkeypatch.setattr(TNP, "_pump", None)
+    monkeypatch.setattr(TNP, "_lib", None)
+    monkeypatch.setattr(TNP, "build", broken)
+    fleet = _port_fleet(service, stage="full")
+    with pytest.raises(RuntimeError, match="g.. failed"):
+        fleet._gather_batch_packed()
