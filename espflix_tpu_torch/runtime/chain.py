@@ -36,18 +36,10 @@ from espflix_tpu_torch.ops import idct as IDCT
 from espflix_tpu_torch.ops.intwrap import wrap32
 from espflix_tpu_torch.ops import vlc_scan as VS
 from espflix_tpu_torch.runtime import telemetry
+# the per-tick xs keys (runtime/chunk_layout.py)
+from espflix_tpu_torch.runtime.chunk_layout import (  # noqa: F401
+    DECODE_KEYS, DECODE_KEYS_DW, OUTPUT_KEYS, SCROLL_KEYS)
 from espflix_tpu_torch.runtime.output import _SIN32
-
-# per-tick xs keys (stacked [K, ...] by the caller)
-DECODE_KEYS = ("words", "start_bits", "rows", "alive", "pic_type",
-               "full_pel", "r_size", "lane_of_row", "perm",
-               "intra_q", "non_intra_q", "active")
-# device-window mode (win > 0): per-LANE words + per-row bases replace
-# the pre-built [NS, win] row windows (gather_scan_rows on the device)
-DECODE_KEYS_DW = ("lane_words", "row_base") + DECODE_KEYS[1:]
-OUTPUT_KEYS = ("osd", "blend", "progress", "parity", "aud_words",
-               "aud_act", "aud_nval", "beep_left", "starved")
-SCROLL_KEYS = ("hscroll",)
 
 
 def beep_wave(n_samples: int) -> np.ndarray:

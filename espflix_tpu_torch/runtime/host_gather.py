@@ -148,15 +148,15 @@ def batched_next_pictures(sessions, tally: dict | None = None,
 
 def gather_pictures(sessions, log, *, geometry: tuple[int, int],
                     words_per_lane: int, max_slices: int,
-                    batched: bool = True, tally: dict | None = None,
-                    measure=None):
+                    tally: dict | None = None, measure=None):
     """One display tick of picture gather: advance every session's
     presentation clock, pull at most one complete picture per lane
-    (native lanes batched when `batched`), and admit them in lane
-    order.  Returns (pictures, pts int64[N], pre_errors bool[N]).
-    With `tally`, adds the tick's feed.bytes_read (what the sessions'
-    pumps read), feed.rounds (the batched pop's rounds; the per-lane
-    path counts one), feed.lane_ticks and feed.underruns."""
+    (native lanes through batched_next_pictures, the others through
+    their next_picture), and admit them in lane order.  Returns
+    (pictures, pts int64[N], pre_errors bool[N]).  With `tally`, adds
+    the tick's feed.bytes_read (what the sessions' pumps read),
+    feed.rounds (the batched pop's rounds; one when no lane is
+    native), feed.lane_ticks and feed.underruns."""
     n = len(sessions)
     pics = [None] * n
     pts = np.full(n, -1, np.int64)
@@ -169,8 +169,7 @@ def gather_pictures(sessions, log, *, geometry: tuple[int, int],
                       for s in sessions)
         read0 = read_total(sessions)
     pre_errors = np.zeros(n, bool)
-    got = batched_next_pictures(sessions, tally, measure) if batched \
-        else None
+    got = batched_next_pictures(sessions, tally, measure)
     for i, s in enumerate(sessions):
         if s is None:
             continue

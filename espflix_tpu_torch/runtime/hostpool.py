@@ -8,9 +8,10 @@ worker PROCESSES by contiguous lane range.  Each worker owns its lanes
 end to end -- streamer I/O, TS demux and ES segmentation (the native
 session feed when built), SBC rings, control actions -- and per tick
 returns its shard's device-ready numpy arrays: the span-sorted slice-row
-pack + row permutation (the per-shard layout of
-ops/scan_dense.pack_slice_rows_sharded) plus the audio frames.  The
-parent only concatenates shard blobs and runs the device chain
+pack in device windows + row permutation (the per-shard layout of
+ops/scan_dense.pack_slice_rows_sharded) plus the audio frames, as
+runtime/chunk_layout.tick_inputs lays them out.  The parent only
+concatenates shard blobs and runs the device chain
 (Fleet.run_chunk_full_pooled).
 
 A worker never touches the card and never imports torch: it is a fresh
@@ -18,14 +19,14 @@ interpreter (``python -m espflix_tpu_torch.runtime.hostpool``, started
 with exec, never a fork of the parent, which holds a CUDA context) whose
 environment has CUDA_VISIBLE_DEVICES="", and it imports only the
 torch-free host modules (models/mpeg1_host.py, ops/host_pack.py,
-runtime/host_gather.py, runtime/player.py and the session feeds).  It
-gathers through the in-process Fleet's own functions
-(runtime/host_gather.py), so it admits, drops and re-seeks pictures as
-the Fleet does, and returns the events it would have logged.  Parent and worker talk
-through a multiprocessing Connection over a socket pair.  Control
-actions (seek/pause/trick) and snapshot/restore route to workers as
-messages and apply between ticks -- the same boundary semantics as the
-chunked dispatch.
+runtime/host_gather.py, runtime/chunk_layout.py, runtime/player.py and
+the session feeds).  It gathers through the in-process Fleet's own
+functions (runtime/host_gather.py), so it admits, drops and re-seeks
+pictures as the Fleet does, and returns the events it would have
+logged.  Parent and worker talk through a multiprocessing Connection
+over a socket pair.  Control actions (seek/pause/trick) and
+snapshot/restore route to workers as messages and apply between ticks
+-- the same boundary semantics as the chunked dispatch.
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ from multiprocessing.connection import Connection
 from pathlib import Path
 
 import numpy as np
+
+from espflix_tpu_torch.runtime import chunk_layout as CL
 
 __all__ = ["HostPool"]
 
@@ -78,8 +81,6 @@ def _worker_main(conn, lane_lo, lane_hi, words_per_lane, mb_w, mb_h):
     n = lane_hi - lane_lo
     sessions = [None] * n
     aud_op = [None]
-    dev_win = os.environ.get("ESPFLIX_DEVICE_WINDOWS", "1") != "0"
-    batched = os.environ.get("ESPFLIX_BATCHED_POP", "1") != "0"
 
     def gather(F):
         """One tick of this shard through the Fleet's own gather
@@ -95,36 +96,24 @@ def _worker_main(conn, lane_lo, lane_hi, words_per_lane, mb_w, mb_h):
         feed = {}
         pics, pts, pre_errors = HG.gather_pictures(
             sessions, logger(ev_pic), geometry=(mb_w * 16, mb_h * 16),
-            words_per_lane=words_per_lane, max_slices=mb_h,
-            batched=batched, tally=feed)
+            words_per_lane=words_per_lane, max_slices=mb_h, tally=feed)
         n_i = sum(p is not None and p.pic_type == 1 for p in pics)
         b = make_picture_batch(pics, words_per_lane=words_per_lane,
                                max_slices=mb_h, geometry=(mb_w, mb_h))
-        sl = pack_slice_rows(b, sort_rows=True, device_windows=dev_win)
+        # per-LANE payload words; the [rows, win] windows gather on the
+        # device
+        sl = pack_slice_rows(b, sort_rows=True, device_windows=True)
         perm, dup = row_perm(sl["lane_of_row"], sl["rows"], sl["alive"],
                              n, mb_h)
         pre_errors |= dup | sl["overflow"]
-        aud_words, act, nval, starved, _ch, aud_op[0] = \
-            HG.gather_audio_arrays(sessions, F, aud_op[0], logger(ev_aud))
-        rk = (("row_base",) if dev_win else ("words",)) + (
-            "start_bits", "rows", "alive", "pic_type", "full_pel",
-            "r_size", "lane_of_row")
-        out = dict(
-            rows={k: sl[k] for k in rk},
-            perm=perm, intra_q=b["intra_q"],
-            non_intra_q=b["non_intra_q"], active=b["active"],
-            pts=pts, pre_errors=pre_errors, n_i=n_i,
-            video=np.array([p is not None for p in pics]),
-            aud_words=aud_words, aud_act=act, aud_nval=nval,
-            starved=starved, aud_op=aud_op[0], ev_pic=ev_pic,
-            ev_aud=ev_aud, feed=feed)
-        if dev_win:
-            # per-LANE payload words; the [rows, win] windows gather on
-            # the device
-            out["lane_words"] = sl["lane_words"]
-            out["win"] = sl["win"]
-        out["gather_s"] = time.perf_counter() - t0
-        return out
+        *audio, _ch, aud_op[0] = HG.gather_audio_arrays(
+            sessions, F, aud_op[0], logger(ev_aud))
+        return dict(
+            x=CL.tick_inputs(sl, perm, b, {}, audio), pts=pts,
+            pre_errors=pre_errors,
+            video=np.array([p is not None for p in pics]), n_i=n_i,
+            aud_op=aud_op[0], ev_pic=ev_pic, ev_aud=ev_aud, feed=feed,
+            gather_s=time.perf_counter() - t0)
 
     while True:
         try:
@@ -298,33 +287,8 @@ class HostPool:
             c.send(("gather", F))
         parts = [self._recv_ok(k) for k in range(self.w)]
         t1 = time.perf_counter()
-        dev_win = "lane_words" in parts[0]
-        wkey = "lane_words" if dev_win else "words"
-
-        def words_of(p):
-            return p if dev_win else p["rows"]
-        Wm = max(words_of(p)[wkey].shape[1] for p in parts)
-        for p in parts:
-            w = words_of(p)[wkey]
-            if w.shape[1] < Wm:
-                words_of(p)[wkey] = np.pad(w, ((0, 0), (0, Wm - w.shape[1])))
-        out = {k: np.concatenate([p["rows"][k] for p in parts])
-               for k in parts[0]["rows"]}
-        if dev_win:
-            out["lane_words"] = np.concatenate(
-                [p["lane_words"] for p in parts])
-            out["win"] = max(p["win"] for p in parts)
-        # audio word widths vary per worker (per-lane frame sizes);
-        # zero-pad to the fleet max before concatenating
-        Wa = max(p["aud_words"].shape[2] for p in parts)
-        for p in parts:
-            a = p["aud_words"]
-            if a.shape[2] < Wa:
-                p["aud_words"] = np.pad(
-                    a, ((0, 0), (0, 0), (0, Wa - a.shape[2])))
-        for k in ("perm", "intra_q", "non_intra_q", "active", "pts",
-                  "pre_errors", "video", "aud_words", "aud_act",
-                  "aud_nval", "starved"):
+        out = CL.join_workers([p["x"] for p in parts])
+        for k in ("pts", "pre_errors", "video"):
             out[k] = np.concatenate([p[k] for p in parts])
         out["n_i"] = sum(p["n_i"] for p in parts)
         # events in the in-process order: every lane's picture events,

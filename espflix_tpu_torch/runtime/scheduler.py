@@ -41,15 +41,17 @@ workers): native session feeds (streaming/native_feed.py) pop
 fleet-wide in one ctypes call a pump round, and
 run_chunk_full pops them straight into the batch layout
 (_gather_batch_packed, timer "gather_packed") and drains their SBC rings
-in one call; ESPFLIX_BATCHED_POP=0 / ESPFLIX_PACKED_POP=0 restore the
-per-lane paths.  On the packed path a lane whose Streamer has a regular
-file open reads from a read-only mapping of the file
-(streaming/title_maps.py), and those lanes' pops, reads and feeds run
-in one threaded native call a tick (streaming/native_pump.py).
+in one call; the other lanes take the classic gather.  On the packed
+path a lane whose Streamer has a regular file open reads from a
+read-only mapping of the file (streaming/title_maps.py), and those
+lanes' pops, reads and feeds run in one threaded native call a tick
+(streaming/native_pump.py).
 Key events reach the sessions between chunks through
 ``Fleet.apply_keys`` (the remote's dispatch, runtime/input.dispatch_key).
 run_chunk_full_pooled runs the full chain on lanes whose sessions live
-in host worker processes (runtime/hostpool.HostPool).
+in host worker processes (runtime/hostpool.HostPool).  Both full-chain
+paths assemble their chunks through runtime/chunk_layout.py, in device
+windows.
 
 Frames and SBC history stay on the fleet's device (CUDA by default).
 
@@ -75,7 +77,6 @@ its spans per stage (telemetry.traced reads them).
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,6 +89,7 @@ from espflix_tpu_torch.ops import scan_dense as SD
 from espflix_tpu_torch.ops import vlc_scan as VS
 from espflix_tpu_torch.parallel import mesh as PM
 from espflix_tpu_torch.runtime import chain as CH
+from espflix_tpu_torch.runtime import chunk_layout as CL
 from espflix_tpu_torch.runtime import host_gather as HG
 from espflix_tpu_torch.runtime import telemetry
 from espflix_tpu_torch.runtime.events import Ev, EventLog
@@ -237,20 +239,6 @@ class Fleet:
             # fleet's lifetime
             self.chain = CH.FullChain(pal=pal, n_aud_frames=self.audio_F,
                                       device=self.device)
-        # device-side scan-row windowing in run_chunk_full: ship [N, Wm]
-        # per-lane words and gather the [NS, win] row windows on the
-        # device; ESPFLIX_DEVICE_WINDOWS=0 restores host-built windows
-        self._dev_win = os.environ.get(
-            "ESPFLIX_DEVICE_WINDOWS", "1") != "0"
-        # batched native pops in _gather_pictures (one ctypes call per
-        # pump round fleet-wide); ESPFLIX_BATCHED_POP=0 restores per-lane
-        self._batched_pop = os.environ.get(
-            "ESPFLIX_BATCHED_POP", "1") != "0"
-        # packed pops: native pictures land directly in the batch layout
-        # (run_chunk_full); ESPFLIX_PACKED_POP=0 restores the classic
-        # gather
-        self._packed_pop = os.environ.get(
-            "ESPFLIX_PACKED_POP", "1") != "0"
         self._packed = None
         self._titles = None       # streaming/title_maps.TitleMaps
         # the device parser's symbol budget (scheduler.py:164-181)
@@ -383,8 +371,8 @@ class Fleet:
     def _gather_pictures(self):
         """One display-tick of host work (host_gather.gather_pictures):
         advance every session's clock, pull at most one complete picture
-        per lane (native lanes batched unless ESPFLIX_BATCHED_POP=0) and
-        apply the containment policies in lane order."""
+        per lane (native lanes in one pop call a pump round) and apply
+        the containment policies in lane order."""
         if self._titles is not None:
             # the sessions' Streamers read again: hand the cursors back
             self._titles.release()
@@ -392,7 +380,7 @@ class Fleet:
             self.sessions, self.events.log,
             geometry=(self.width, self.height),
             words_per_lane=self.words_per_lane, max_slices=self.mb_h,
-            batched=self._batched_pop, tally=self.counters,
+            tally=self.counters,
             measure=self.timers.measure)
 
     # -- packed gather (native pops straight into the batch layout) ------
@@ -413,8 +401,9 @@ class Fleet:
         size, popped through the growable per-lane path, or from lanes
         off the fast path) are checked after the rounds in lane order,
         so the events come out as _gather_pictures logs them.  Returns
-        (batch_dict, pts, pre_errors), or None when the fast path is off
-        or has no lane (the caller falls back to the classic gather).
+        (batch_dict, pts, pre_errors), or None when the native feed is
+        not built or no lane is on the fast path (the caller falls back
+        to the classic gather).
 
         A fast lane whose pump is not overridden and whose Streamer has
         a regular file open reads from a read-only mapping of that file
@@ -431,7 +420,7 @@ class Fleet:
         their end) and the feed call ("gather.feed").  The tick's feed
         counts go to Fleet.counters; ``feed.rounds`` is the most pops a
         lane made."""
-        if not (self._batched_pop and self._packed_pop and NF.available()):
+        if not NF.available():
             return None
         fast, slow = HG.fast_lanes(self.sessions)
         if not fast:
@@ -1062,9 +1051,10 @@ class Fleet:
         TickResult; tap_lanes get their full DAC fields and PDM words
         back).  Native lanes pop straight into the batch layout
         (_gather_batch_packed, timer "gather_packed"), the rest through
-        the classic gather ("gather", "batch_assemble").  Control-plane
-        effects apply at chunk boundaries.  Needs Fleet(output=True) on
-        the 'pallas' parser.  Under a mesh the
+        the classic gather ("gather", "batch_assemble").  The chunk is
+        laid out in device windows by runtime/chunk_layout.py.
+        Control-plane effects apply at chunk boundaries.  Needs
+        Fleet(output=True) on the 'pallas' parser.  Under a mesh the
         chain runs per shard (chain.make_sharded_full_chunk) on rows
         packed per shard, the budgets sized for the worst shard; the
         first call moves the SBC and PDM state onto the mesh."""
@@ -1104,58 +1094,26 @@ class Fleet:
                         is_i.reshape(n_sh, -1).sum(axis=1).max())
                         * self.mb_h)
                     sl, dup = SD.pack_slice_rows_sharded(
-                        b, n_sh, self.mb_h, device_windows=self._dev_win)
+                        b, n_sh, self.mb_h, device_windows=True)
                     perm = sl["perm"]
                     dup = dup | sl["overflow"]
                 else:
                     need_long = max(need_long, int(is_i.sum()) * self.mb_h)
                     sl = VS.pack_slice_rows(b, sort_rows=True,
-                                            device_windows=self._dev_win)
+                                            device_windows=True)
                     perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
                                             sl["alive"], self.n, self.mb_h)
             dup_any |= dup
             with self.timers.measure("gather"):
-                aud_words, aact, anval, starved, ch = \
-                    self._gather_audio_arrays(F)
+                *audio, ch = self._gather_audio_arrays(F)
                 self._update_osd()
                 snap = self.output.tick_state(F)
-            dkeys = CH.DECODE_KEYS_DW[:9] if self._dev_win \
-                else CH.DECODE_KEYS[:8]
-            x = {k: sl[k] for k in dkeys}
-            if self._dev_win:
-                x["win"] = sl["win"]
-            x["perm"] = perm
-            for k in ("intra_q", "non_intra_q", "active"):
-                x[k] = b[k]
-            for k in ("osd", "blend", "progress", "parity", "hscroll",
-                      "beep_left"):
-                x[k] = snap[k]
-            x["aud_words"] = aud_words
-            x["aud_act"] = aact
-            x["aud_nval"] = anval
-            x["starved"] = starved
-            xs_t.append(x)
-            gathered.append((b["active"].copy(), pts, pre_errors, starved))
+            xs_t.append(CL.tick_inputs(sl, perm, b, snap, audio))
+            gathered.append((b["active"].copy(), pts, pre_errors,
+                             audio[3]))
 
         with self.timers.measure("batch_assemble"):
-            # common word-window width across the chunk
-            if self._dev_win:
-                win = max(x.pop("win") for x in xs_t)
-                wkey = "lane_words"
-            else:
-                win = 0
-                wkey = "words"
-            Wm = max(x[wkey].shape[1] for x in xs_t)
-            for x in xs_t:
-                x[wkey] = np.pad(x[wkey],
-                                 ((0, 0), (0, Wm - x[wkey].shape[1])))
-            # audio word width follows the tick's largest SBC frame
-            Wa = max(x["aud_words"].shape[2] for x in xs_t)
-            for x in xs_t:
-                x["aud_words"] = np.pad(
-                    x["aud_words"],
-                    ((0, 0), (0, 0), (0, Wa - x["aud_words"].shape[2])))
-            stacked = {k: np.stack([x[k] for x in xs_t]) for k in xs_t[0]}
+            stacked, win = CL.stack_chunk(xs_t)
             with self.timers.measure("upload"):
                 xs = M.xs_to_torch(stacked, self.device) if not n_sh \
                     else PM.shard_axis1_tree(self.mesh, stacked)
@@ -1251,7 +1209,7 @@ class Fleet:
         control plane (pump, demux, segmentation, slice packing) runs in
         the pool's worker processes; this process concatenates their
         shard blobs, regroups the per-worker span-sorted rows into the
-        global long and short buckets, globalises lane_of_row and perm
+        global long and short buckets (chunk_layout.regroup_workers)
         and runs the same FullChain on the fleet's device, with the OSD,
         beep and slide state of this fleet's OutputStage (drive it via
         pool.call and fleet.output).  Presentation and resync route back
@@ -1264,7 +1222,7 @@ class Fleet:
         mbh = self.mb_h
         NS = self.n * mbh
         counted = dict(self.counters) if telemetry.tracing() else None
-        xs_t = []
+        snaps = []
         meta = []
         need_long = 8
         for _ in range(n_ticks):
@@ -1275,70 +1233,19 @@ class Fleet:
                 self.events.log(Ev(ev), lane, value=value)
             need_long = max(need_long, g["n_i"] * mbh)
             meta.append(g)
-            snap = self.output.tick_state(F)
-            x = dict(g)
-            for k in ("osd", "blend", "progress", "parity", "hscroll",
-                      "beep_left"):
-                x[k] = snap[k]
-            xs_t.append(x)
+            snaps.append(self.output.tick_state(F))
 
         long_rows, steps_long, steps_short = bucket_policy(
             need_long, NS, steps_long=steps_long, steps_short=steps_short)
 
         with self.timers.measure("batch_assemble"):
-            # regroup each tick's per-worker sorted rows into global
-            # (long | short) segments: workers put their longest rows
-            # first (span sort), so the segment boundaries are the
-            # per-worker I-row counts -- a few big copies, no per-row
-            # permute
-            W, ln = pool.w, pool.ln
-            dev_win = "lane_words" in xs_t[0]
-            rowk = (("row_base",) if dev_win else ("words",)) + (
-                "start_bits", "rows", "alive", "pic_type", "full_pel",
-                "r_size", "lane_of_row")
-            wkey = "lane_words" if dev_win else "words"
-            win = max(x.pop("win") for x in xs_t) if dev_win else 0
-            Wm = max(x[wkey].shape[1] for x in xs_t)
-            NSl = ln * mbh
-            for x in xs_t:
-                x[wkey] = np.pad(x[wkey],
-                                 ((0, 0), (0, Wm - x[wkey].shape[1])))
-                # globalise per-worker row and lane indices
-                x["lane_of_row"] = (
-                    x["lane_of_row"].reshape(W, NSl)
-                    + (np.arange(W, dtype=np.int32) * ln)[:, None]
-                ).reshape(-1)
-                perm = x["perm"].astype(np.int64).reshape(W, -1)
-                dead = perm >= NSl
-                perm = perm + (np.arange(W, dtype=np.int64) * NSl)[:, None]
-                perm[dead] = NS
-                # bucket boundary per worker = its alive I rows
-                pt = x["pic_type"].reshape(W, NSl)
-                al = x["alive"].reshape(W, NSl)
-                n_long = ((pt == 1) & (al != 0)).sum(axis=1)
-                sel_long = np.zeros(NS, bool)
-                for k in range(W):
-                    sel_long[k * NSl:k * NSl + n_long[k]] = True
-                order = np.concatenate([np.nonzero(sel_long)[0],
-                                        np.nonzero(~sel_long)[0]])
-                inv = np.empty(NS + 1, np.int64)
-                inv[order] = np.arange(NS)
-                inv[NS] = NS
-                for kk in rowk:
-                    x[kk] = np.ascontiguousarray(x[kk][order])
-                x["perm"] = inv[perm.reshape(-1)].astype(np.int32)
-            okeys = rowk + ("perm", "intra_q", "non_intra_q", "active",
-                            "osd", "blend", "progress", "parity",
-                            "hscroll", "beep_left", "aud_words", "aud_act",
-                            "aud_nval", "starved")
-            if dev_win:
-                okeys = okeys + ("lane_words",)
-            Wa = max(x["aud_words"].shape[2] for x in xs_t)
-            for x in xs_t:
-                x["aud_words"] = np.pad(
-                    x["aud_words"],
-                    ((0, 0), (0, 0), (0, Wa - x["aud_words"].shape[2])))
-            stacked = {k: np.stack([x[k] for x in xs_t]) for k in okeys}
+            xs_t = []
+            for g, snap in zip(meta, snaps):
+                r = CL.regroup_workers(g, pool.w, pool.ln, mbh)
+                xs_t.append(CL.tick_inputs(
+                    r, r["perm"], g, snap,
+                    [g[k] for k in CL.AUDIO_KEYS]))
+            stacked, win = CL.stack_chunk(xs_t)
             with self.timers.measure("upload"):
                 xs = M.xs_to_torch(stacked, self.device)
 

@@ -6,8 +6,9 @@ bench.py's build_chain does (bench.py:268-343): realistic I/P GOPs at
 over the lanes in a mixed (or aligned) GOP phase, span-sorted slice
 rows, 13 SBC frames per tick from random_frame(mode=0, bitpool=28), and
 random OSD, blend, progress, parity, beep and starved state; when
-scrolled, random hscrolls and outgoing planes.  The arrays are numpy,
-so the same inputs feed the JAX package and the port.
+scrolled, random hscrolls and outgoing planes, laid out by
+runtime/chunk_layout.py.  The arrays are numpy, so the same inputs feed
+the JAX package and the port.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from espflix_tpu_torch.models import mpeg1 as M
 from espflix_tpu_torch.models import sbc as dsbc
 from espflix_tpu_torch.ops import scan_dense as SD
 from espflix_tpu_torch.ops import vlc_scan as VS
+from espflix_tpu_torch.runtime import chunk_layout as CL
 
 F_AUDIO = 13        # 13 x 128 = 1664 >= 1600 PCM samples per 30 Hz tick
 
@@ -74,29 +76,6 @@ def bench_chunk(lanes: int, *, n_pictures: int = 12, distinct: int = 8,
     seq = ticks[0][0].seq
     mbw, mbh = seq.mb_width, seq.mb_height
     K = n_pictures
-    sls, bats, perms = [], [], []
-    for sel in ticks:
-        b = M.make_picture_batch(sel, words_per_lane=wpl, max_slices=mbh)
-        sl = VS.pack_slice_rows(b, sort_rows=True, device_windows=win)
-        assert not sl["overflow"].any()
-        perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
-                                sl["alive"], lanes, mbh)
-        assert not dup.any()
-        sls.append(sl)
-        bats.append(b)
-        perms.append(perm)
-    wkey = "lane_words" if win else "words"
-    width = max(sl[wkey].shape[1] for sl in sls)
-    for sl in sls:
-        sl[wkey] = np.pad(sl[wkey], ((0, 0), (0, width - sl[wkey].shape[1])))
-    keys = ((wkey, "row_base") if win else (wkey,)) + (
-        "start_bits", "rows", "alive", "pic_type", "full_pel", "r_size",
-        "lane_of_row")
-    xs = {k: np.stack([sl[k] for sl in sls]) for k in keys}
-    xs["perm"] = np.stack(perms)
-    for k in ("intra_q", "non_intra_q", "active"):
-        xs[k] = np.stack([b[k] for b in bats])
-
     arng = np.random.default_rng(17)
     frames_a = np.stack(
         [np.frombuffer(random_frame(arng, mode=0, bitpool=28), np.uint8)
@@ -104,26 +83,36 @@ def bench_chunk(lanes: int, *, n_pictures: int = 12, distinct: int = 8,
     aw = dsbc.frames_to_words(np.ascontiguousarray(
         np.broadcast_to(frames_a, (lanes, F_AUDIO, 64))))
     orng = np.random.default_rng(23)
-    xs.update(
+    state = dict(
         osd=orng.integers(0, 256, (K, lanes, 16, 80), dtype=np.uint8),
         blend=orng.integers(0, 256, (K, lanes)).astype(np.int32),
         progress=orng.integers(0, 352, (K, lanes)).astype(np.int32),
         parity=orng.integers(0, 2, (K, lanes)).astype(np.int32),
-        beep_left=orng.integers(0, 3, (K, lanes)).astype(np.int32),
-        aud_words=np.broadcast_to(aw, (K,) + aw.shape).copy(),
-        aud_act=np.ones((K, lanes), bool),
-        aud_nval=np.full((K, lanes), F_AUDIO, np.int32),
-        starved=orng.random((K, lanes)) < starve_p,
-    )
+        beep_left=orng.integers(0, 3, (K, lanes)).astype(np.int32))
+    starved = orng.random((K, lanes)) < starve_p
     slide = None
     if scrolled:
-        xs["hscroll"] = orng.integers(0, 352, (K, lanes)).astype(np.int32)
+        state["hscroll"] = orng.integers(0, 352, (K, lanes)).astype(
+            np.int32)
         slide = tuple(orng.integers(0, 249, (lanes, h, w), dtype=np.uint8)
                       for h, w in ((192, 352), (96, 176), (96, 176)))
+    xs_t = []
+    for k, sel in enumerate(ticks):
+        b = M.make_picture_batch(sel, words_per_lane=wpl, max_slices=mbh)
+        sl = VS.pack_slice_rows(b, sort_rows=True, device_windows=win)
+        assert not sl["overflow"].any()
+        perm, dup = SD.row_perm(sl["lane_of_row"], sl["rows"],
+                                sl["alive"], lanes, mbh)
+        assert not dup.any()
+        xs_t.append(CL.tick_inputs(
+            sl, perm, b, {n: v[k] for n, v in state.items()},
+            (aw, np.ones(lanes, bool), np.full(lanes, F_AUDIO, np.int32),
+             starved[k])))
+    xs, win = CL.stack_chunk(xs_t)
     NS = lanes * mbh
     kw = dict(mb_width=mbw, mb_height=mbh, n_lanes=lanes,
               long_rows=long_rows or min(2 * lanes, NS // 2),
               steps_long=1024, steps_short=384, n_aud_frames=F_AUDIO,
               channels=1, pal=pal, scrolled=scrolled,
-              win=max(sl["win"] for sl in sls) if win else 0, chunk=128)
+              win=win, chunk=128)
     return xs, kw, slide

@@ -7,11 +7,12 @@ runtime/scheduler.run_chunk_full), part by part:
 
   gather      -- session pump + native packed pop straight into the
                  batch layout (_gather_batch_packed), or the classic
-                 _gather_pictures + make_picture_batch (--classic)
-  pack        -- pack_slice_rows (+ row_perm) in device-window or
-                 row-window mode
+                 _gather_pictures + make_picture_batch where no lane is
+                 on the packed path
+  pack        -- pack_slice_rows (+ row_perm) in device windows
   audio       -- _gather_audio_arrays (SBC ring pops -> word arrays)
-  stack       -- the per-chunk np.stack of the xs dict (no upload)
+  stack       -- the tick's chain inputs stacked as a chunk
+                 (runtime/chunk_layout.py; no upload)
 
 then runs --chunks chunks of 4 ticks through run_chunk_full itself on
 --device (the card by default) and reports the fleet's timers a tick
@@ -46,20 +47,12 @@ def main(argv=None):
     ap.add_argument("--gops", type=int, default=6)
     ap.add_argument("--device", default="cuda",
                     help="torch device of the fleet (cuda or cpu)")
-    ap.add_argument("--classic", action="store_true",
-                    help="force the classic per-picture gather "
-                    "(PictureData marshalling + make_picture_batch)")
-    ap.add_argument("--no-device-windows", action="store_true",
-                    help="pack full row windows on the host instead "
-                    "of per-lane words")
     ap.add_argument("--service", default=None)
     args = ap.parse_args(argv)
 
-    if args.classic:
-        os.environ["ESPFLIX_PACKED_POP"] = "0"
-
     from espflix_tpu_torch.models import mpeg1 as M
     from espflix_tpu_torch.ops.host_pack import pack_slice_rows, row_perm
+    from espflix_tpu_torch.runtime import chunk_layout as CL
     from espflix_tpu_torch.tools.serve_scenario import (build_fleet,
                                                         generate_service)
 
@@ -74,8 +67,6 @@ def main(argv=None):
     fleet = build_fleet("file://" + root, args.lanes, args.titles,
                         words_per_lane=8192, stage="full",
                         device=args.device)
-    dev_win = not args.no_device_windows
-    fleet._dev_win = dev_win
 
     t_gather, t_pack, t_audio, t_stack = [], [], [], []
     used_packed = 0
@@ -91,18 +82,15 @@ def main(argv=None):
                 pics, words_per_lane=fleet.words_per_lane,
                 max_slices=fleet.mb_h, geometry=(fleet.mb_w, fleet.mb_h))
         t1 = time.perf_counter()
-        sl = pack_slice_rows(b, sort_rows=True, device_windows=dev_win)
+        sl = pack_slice_rows(b, sort_rows=True, device_windows=True)
         perm, _dup = row_perm(sl["lane_of_row"], sl["rows"], sl["alive"],
                               fleet.n, fleet.mb_h)
         t2 = time.perf_counter()
         aud = fleet._gather_audio_arrays(fleet.audio_F)
         t3 = time.perf_counter()
-        # the per-chunk xs assembly cost, at K = 1 (worst case)
-        x = {k: v for k, v in sl.items() if isinstance(v, np.ndarray)}
-        x["perm"] = perm
-        x["aud_words"] = aud[0]
-        xs = {k: np.stack([v]) for k, v in x.items()}
-        del xs
+        # the per-chunk xs assembly cost, at K = 1 (worst case), without
+        # the OutputStage's state
+        CL.stack_chunk([CL.tick_inputs(sl, perm, b, {}, aud[:4])])
         t4 = time.perf_counter()
         t_gather.append(t1 - t0)
         t_pack.append(t2 - t1)
@@ -116,8 +104,6 @@ def main(argv=None):
         "lanes": args.lanes,
         "ticks": args.ticks,
         "device": str(fleet.device),
-        "mode": "classic" if args.classic else "packed",
-        "device_windows": dev_win,
         "packed_ticks": used_packed,
         "gather_ms": ms(t_gather),
         "pack_ms": ms(t_pack),

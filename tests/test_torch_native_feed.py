@@ -217,28 +217,27 @@ def _gather_run(fleet, ticks=20):
 
 def test_batched_pop_matches_per_lane(service, monkeypatch):
     """_gather_pictures through pop_many (one call a pump round) gives
-    the per-lane path's pictures, states and events, and the JAX
-    fleet's batched gather's."""
-    runs = []
-    for batched in ("1", "0"):
+    the pictures, states and events of the JAX fleet's gather, both
+    per lane (the JAX package's ESPFLIX_BATCHED_POP=0) and batched."""
+    fleet = _port_fleet(service)
+    got = (_gather_run(fleet), _events(fleet))
+    for batched in ("0", "1"):
         monkeypatch.setenv("ESPFLIX_BATCHED_POP", batched)
-        fleet = _port_fleet(service)
-        assert fleet._batched_pop == (batched == "1")
-        runs.append((_gather_run(fleet), _events(fleet)))
-    monkeypatch.setenv("ESPFLIX_BATCHED_POP", "1")
-    jf = JSS.build_fleet("file://" + str(service), 8, 2,
-                         words_per_lane=8192)
-    assert runs[0] == runs[1]
-    assert runs[0][0] == _gather_run(jf)
+        jf = JSS.build_fleet("file://" + str(service), 8, 2,
+                             words_per_lane=8192)
+        assert got == (_gather_run(jf), _events(jf)), batched
     # pictures came, then every title ran out (the EOS path)
-    assert sum(p is not None for t in runs[0][0] for p in t[0]) == 8 * 12
-    assert set(runs[0][0][-1][3]) == {"DONE"}
+    assert sum(p is not None for t in got[0] for p in t[0]) == 8 * 12
+    assert set(got[0][-1][3]) == {"DONE"}
 
 
-def _packed_run(fleet, M, ticks=20):
+def _packed_run(fleet, M, ticks=20, classic=False):
+    """The batch dicts, pts, flags and states of `ticks` ticks of
+    run_chunk_full's gather; `classic`: of _gather_pictures +
+    make_picture_batch alone."""
     out = []
     for _ in range(ticks):
-        g = fleet._gather_batch_packed()
+        g = None if classic else fleet._gather_batch_packed()
         if g is not None:
             b, pts, pre = g
         else:
@@ -269,18 +268,16 @@ def _assert_batches_equal(A, B):
     assert saw_active and len(A) == len(B)
 
 
-def test_packed_gather_matches_classic_and_jax(service, monkeypatch):
+def test_packed_gather_matches_classic_and_jax(service):
     """pop_many_packed's batch dict == make_picture_batch of the classic
     gather == the JAX PackedBatch dict, tick for tick (active rows
     including their zero tails), with the same pts, flags, states."""
     from espflix_tpu.models import mpeg1 as JM
     runs = []
-    for packed in ("1", "0"):
-        monkeypatch.setenv("ESPFLIX_PACKED_POP", packed)
+    for classic in (False, True):
         fleet = _port_fleet(service, stage="full")
-        runs.append((_packed_run(fleet, TM), fleet._packed is not None,
-                     _events(fleet)))
-    monkeypatch.setenv("ESPFLIX_PACKED_POP", "1")
+        runs.append((_packed_run(fleet, TM, classic=classic),
+                     fleet._packed is not None, _events(fleet)))
     jf = JSS.build_fleet("file://" + str(service), 8, 2,
                          words_per_lane=8192, stage="full")
     jrun = _packed_run(jf, JM)
@@ -292,19 +289,19 @@ def test_packed_gather_matches_classic_and_jax(service, monkeypatch):
 
 
 @pytest.mark.parametrize("case", ["oversize", "geometry"])
-def test_packed_policies_log_the_classic_events(service, monkeypatch, case):
+def test_packed_policies_log_the_classic_events(service, case):
     """Lanes whose pictures the fleet rejects -- more words than a lane
     holds (LANE_OVERSIZE, then LANE_RESYNC) or another geometry
     (LANE_GEOMETRY, parked) -- log the classic gather's events in its
     order through the packed path, with the same batches."""
     kw = dict(words_per_lane=2048) if case == "oversize" else {}
     runs = []
-    for packed in ("1", "0"):
-        monkeypatch.setenv("ESPFLIX_PACKED_POP", packed)
+    for classic in (False, True):
         fleet = _port_fleet(service, stage="full", **kw)
         if case == "geometry":
             fleet.height = 176      # every 352x192 picture mismatches
-        runs.append((_packed_run(fleet, TM, ticks=8), _events(fleet)))
+        runs.append((_packed_run(fleet, TM, ticks=8, classic=classic),
+                     _events(fleet)))
     (got, ev), (classic, ev_c) = runs
     name = "LANE_OVERSIZE" if case == "oversize" else "LANE_GEOMETRY"
     assert sum(e[0] == name for e in ev) >= 2

@@ -2,7 +2,8 @@
 (runtime/telemetry.py) on the CPU, and the benchmark's readers of them.
 
 A three-lane full-chain fleet over a file:// service, on the packed
-gather and on the classic one: with no profiler recording, the fleet
+gather (native feeds) and on the classic one (Python feeds, which pop
+no native lane): with no profiler recording, the fleet
 and its chain open no profiler range, record no CUDA event and append
 no chunk record, and the feed counters still count -- the bytes the
 sessions' streamers returned, a round or more a tick, and as many
@@ -60,18 +61,23 @@ def service(tmp_path_factory):
     return "file://" + d
 
 
-def _fleet(service, read: list | None, source: str = "file"):
+def _fleet(service, read: list | None, source: str = "file",
+           native: bool = True):
     """A full-chain CPU fleet of LANES playing lanes (one SBC frame a
     tick keeps the plain PDM short) whose streamers add the bytes they
     return to read[0] (read None: the stock streamers); source "rom"
-    plays the title from a get_rom buffer."""
+    plays the title from a get_rom buffer; native False gives the
+    sessions Python feeds."""
     f = Fleet(LANES, words_per_lane=8192, parser="pallas", output=True,
               device="cpu", audio_frames_per_tick=1)
     for i in range(LANES):
         s = PlayerSession(service)
         assert s.init_service()
-        s.nav(0)
-        s.play_pause()
+        with pytest.MonkeyPatch.context() as mp:
+            if not native:
+                mp.setenv("ESPFLIX_NATIVE_FEED", "0")
+            s.nav(0)
+            s.play_pause()
         if source == "rom":
             s.play_rom(Streamer().get_url(s.folder(0) + "/video.ts"))
         if read is None:
@@ -127,8 +133,7 @@ def runs(request, service):
     """One untraced chunk (range openings and CUDA events counted), two
     traced ones, then one traced with a caller's stage timer."""
     read = [0]
-    f = _fleet(service, read)
-    f._packed_pop = request.param == "packed"
+    f = _fleet(service, read, native=request.param == "packed")
     opened = []
     n0 = len(T.RECORDS)
     with pytest.MonkeyPatch.context() as mp:
@@ -145,7 +150,8 @@ def runs(request, service):
             raise AssertionError("a CUDA event while untraced")
         mp.setattr(torch.cuda, "Event", event)
         untraced = f.run_chunk_full(K, tap_lanes=(0,))
-    out = SimpleNamespace(fleet=f, read=read, opened=opened,
+    out = SimpleNamespace(fleet=f, packed=request.param == "packed",
+                          read=read, opened=opened,
                           new_records=len(T.RECORDS) - n0,
                           untraced_counts=dict(f.counters), ranges=[])
     with simulated_tracing(out.ranges):
@@ -191,9 +197,12 @@ def test_untraced_fleet_opens_no_range_and_records_nothing(runs):
     c = runs.untraced_counts
     assert c["feed.rounds"] >= K and c["feed.bytes_read"] > 0
     assert c["feed.lane_ticks"] == K * LANES
+    # the classic gather of Python feeds pops no native lane
+    pops = {"gather.pop", "gather.read"}
     assert set(runs.fleet.timers.acc) >= {
-        "gather.pop", "gather.read", "upload", "chain_enqueue",
-        "readback", "host_sync", "batch_assemble"}
+        "upload", "chain_enqueue", "readback", "host_sync",
+        "batch_assemble"} | (pops if runs.packed else {"gather"})
+    assert runs.packed or not pops & set(runs.fleet.timers.acc)
 
 
 def test_feed_counters_match_the_sessions(runs):
@@ -223,13 +232,12 @@ def _nested(ranges, child, parent) -> bool:
 
 @pytest.mark.parametrize("child,parent", NESTS)
 def test_traced_spans_nest_in_their_parents(runs, child, parent):
-    if runs.fleet._packed_pop is False and parent == "fleet.gather_packed":
-        # the classic gather: its pops and pumps inside `gather`, the
-        # feed calls inside each pump
-        parent = "fleet.gather"
-        if child == "fleet.gather.feed":
-            assert not [r for r in runs.ranges if r[0] == child]
-            return
+    if not runs.packed and parent == "fleet.gather_packed":
+        # the classic gather of Python feeds: no native pop, so none of
+        # the gather's sub-spans opens, and `gather` does
+        assert [r for r in runs.ranges if r[0] == "fleet.gather"]
+        assert not [r for r in runs.ranges if r[0] == child]
+        return
     assert _nested(runs.ranges, child, parent)
 
 
