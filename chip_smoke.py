@@ -14,16 +14,18 @@ line is printed):
    nvcc per source, all at once, and the sessions' native TS demuxer;
    prints the registers, local (stack) bytes and static shared bytes
    (cudaFuncGetAttributes) of each scan kernel, of K3 / K3F
-   (compose_put_kernel<false / true>), of K2 at each vector width
+   (compose_put_kernel<false / true>), of K23 at each copy width
+   (idct_compose_put_kernel<V>), of K2 at each vector width
    (idct_T_kernel<V>), of K2F (idct_flat_kernel), of K3P
    (predict_kernel<S, rule>), of K4 (composite_parts_kernel) and of K6
    (sbc_kernel<CH>); the native library (native/: the TS demuxer and the
    session feed; the run fails without it) and the hybrid parser's
    tokenizer (oracle/*.cpp with the port's vlc_luts.h, g++, into
    build/oracle-<hash>/);
-3. kernels: each of the eleven entry points -- K1-K5, the lane-minor
+3. kernels: each of the twelve entry points -- K1-K5, the lane-minor
    K1F, K2F, K3F, the predict-only K3P (rule A over whole planes, rule
-   B over a band), the sequential scan K1S and the SBC decode K6 --
+   B over a band), the sequential scan K1S, the SBC decode K6 and K23,
+   the main path's K2 + K3 in one pass --
    against its plain PyTorch version on the card at the main path's
    shapes (the bench tick's 1,024 lanes at 352x192 and 13 SBC frames a
    lane; K6 also on varied mono and stereo audio: random bitpools
@@ -31,17 +33,21 @@ line is printed):
    partial, idle lanes, a random carried history, two calls), exact
    equality, CUDA-event medians,
    the call's latency (`ms`) and the device's time alone
-   (`device_ms`), and the bound of its work (for the scans the larger
+   (`device_ms`), the plain form's time on its checked run (`plain_ms`),
+   and the bound of its work (for the scans the larger
    of bytes and the longest row's or slice's FSM chain; for K2, K2F, K3
    and K3F the bytes the tick's data needs -- their MB kinds, coded
-   blocks and active lanes -- and for K3P the reference windows its MBs
+   blocks and active lanes; for K23 the same less the residuals --
+   and for K3P the reference windows its MBs
    read, with the bytes of every input and output beside it as
    `yardstick_ms`); K1S's two
    passes alone (the second's resolution against its plain form,
    resolve_slices) and a second K1S call with corrupt slices, idle
    lanes and a budget that cuts lanes inside a later slice, which
    reports the lanes of its in-order pass; K5's cycles a bit step;
-   K2, K2F, K3 and K3F also checked and timed on the tick with the
+   K23 checked against K2 then K3 on the card on both ticks' levels
+   and timed beside them (`split_ms`, `split_device_ms`);
+   K2, K2F, K3, K3F and K23 also checked and timed on the tick with the
    fewest I pictures (`<key>_p`), and checked on the tests' shared edge
    case (espflix_tpu_torch/tools/dense_cases.py, 256 lanes: vectors at
    and past every edge in every half-pel phase, all MB kinds, int16
@@ -58,7 +64,8 @@ line is printed):
    (bench.py --stage full inputs), once with host row windows (win=0)
    and once with device windows (win>0), then a scrolled run (a third
    of the lanes mid-slide): no lane errors, every kernel's launch
-   counter rose during each run, and every out and carry equal to the
+   counter rose during each run (K23's, and neither K2's nor K3's),
+   and every out and carry equal to the
    same ticks run through the plain forms on the card;
 4o. the per-field output path: runtime/output.OutputStage.synthesize
    on phase 4's presented planes (1,024 lanes), 6 fields through the
@@ -91,7 +98,7 @@ O. the validation path against the C oracle (tools/oracle.py), at the
    state carried, equal to oracle.pdm_modulate on every lane;
 B. the port's bench (espflix_tpu_torch/tools/bench.py): each route in
    process at 16 lanes x 2 pictures -- pallas full (the chain), the
-   same scrolled, pallas decode (K1-K3), device full (K1S, K2F, K3F,
+   same scrolled, pallas decode (K1, K23), device full (K1S, K2F, K3F,
    then K4, K6, K5) and hybrid decode (the host tokenizer, K2F, K3F) --
    one chunk on the card with every kernel of the route launched and its
    checksum equal to the same builder's chunk through the plain forms
@@ -103,7 +110,7 @@ B. the port's bench (espflix_tpu_torch/tools/bench.py): each route in
    their metric lines and stderr (the probe's candidates, the peak
    device memory) are printed;
 S. the port's stage timer (espflix_tpu_torch/tools/perf_stages.py):
-   every stage once at 64 lanes on the card (K2, K3, K3F, K3P, K4, K5
+   every stage once at 64 lanes on the card (K2, K23, K3F, K3P, K4, K5
    and K6 launched) equal to the same stage through the plain forms on
    the card; then `python -m espflix_tpu_torch.tools.perf_stages
    --lanes 1024 --iters 8 --reps 3 --json` over every stage, its times
@@ -141,7 +148,7 @@ S. the port's stage timer (espflix_tpu_torch/tools/perf_stages.py):
 7. decode-only serving: serve_scenario --stage decode over the same
    HTTP service at the same lanes, 16 ticks pipelined (tick_submit /
    tick_collect) and 16 chunked (run_chunk, K = 4), two injected faults
-   each: every lane decodes, the faults are resynced, and K1, K2, K3,
+   each: every lane decodes, the faults are resynced, and K1, K23,
    K1F, K2F, K3F and K6 all launched; then 4 ticks per dispatch, and 4 of
    a one-lane fleet (the small-fleet branch), through the kernels and
    through the plain forms: every TickResult field and carry identical;
@@ -171,7 +178,8 @@ S. the port's stage timer (espflix_tpu_torch/tools/perf_stages.py):
    espflix_tpu_torch.tools.play --field on the card for 8 frames into
    a temporary directory: 8 y/u/v/field PGM files each;
 9. the total seconds, the card's name and power limit, one JSON line
-   with the kernels' numbers (launches: serving A's for K1-K6, the
+   with the kernels' numbers (launches: serving A's for K1, K23 and
+   K4-K6, the mesh phase's for K2, none for K3, the
    decode-only serving's for K1F-K3F, the mesh phase's for K3P and
    K1S; phase O's launches and times under "phase_o" of K1S, K2F, K3F,
    K4, K5 and K6), and the final {"ok": true, ...} line.
@@ -306,6 +314,7 @@ def plain_forms():
               VS.run_scan_bucketed_dense_torch),
              (IDCT, "block_residuals_T", IDCT.block_residuals_T_torch),
              (MC, "predict_compose_put", MC.predict_compose_put_torch),
+             (MC, "idct_compose_put", MC.idct_compose_put_torch),
              (CO, "synthesize_field_pair_parts",
               CO.synthesize_field_pair_parts_torch),
              (DS, "modulate", DS.modulate_torch),
@@ -457,6 +466,7 @@ def kernel_counters() -> dict:
     return {"K1_slice_scan_dense": (VS, "launches"),
             "K2_dequant_idct": (IDCT, "launches"),
             "K3_predict_compose_put": (MC, "launches"),
+            "K23_idct_compose_put": (MC, "launches_fused"),
             "K4_composite_field_pair": (CO, "launches"),
             "K5_pdm": (DS, "launches"),
             "K1F_slice_scan_flat": (VS, "launches_flat"),
@@ -467,13 +477,15 @@ def kernel_counters() -> dict:
             "K6_sbc_decode": (dsbc, "launches")}
 
 
-CHAIN_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
-                 "K3_predict_compose_put", "K4_composite_field_pair",
-                 "K6_sbc_decode", "K5_pdm")
+CHAIN_KERNELS = ("K1_slice_scan_dense", "K23_idct_compose_put",
+                 "K4_composite_field_pair", "K6_sbc_decode", "K5_pdm")
+# the pair K23 replaces on the chain and the coeffs_T decode: K2 runs on
+# the mesh's pallas parser, K3 only in phase 3's checks
+SPLIT_KERNELS = ("K2_dequant_idct", "K3_predict_compose_put")
 FLAT_KERNELS = ("K1F_slice_scan_flat", "K2F_dequant_idct_flat",
                 "K3F_predict_compose_put_flat")
-DECODE_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
-                  "K3_predict_compose_put") + FLAT_KERNELS + (
+DECODE_KERNELS = ("K1_slice_scan_dense", "K23_idct_compose_put") + \
+    FLAT_KERNELS + (
                       "K6_sbc_decode",)
 MESH_PALLAS_KERNELS = ("K1_slice_scan_dense", "K2_dequant_idct",
                        "K3P_predict")
@@ -484,6 +496,14 @@ MESH_DEVICE_KERNELS = ("K1S_slice_scan_seq", "K2F_dequant_idct_flat",
 def reset_counts():
     for m, attr in kernel_counters().values():
         setattr(m, attr, 0)
+
+
+def require_unlaunched(label, names):
+    """Raise if any of `names` launched since reset_counts()."""
+    counters = kernel_counters()
+    ran = {n: getattr(*counters[n]) for n in names}
+    if any(ran.values()):
+        raise AssertionError(f"{label}: {ran} launched")
 
 
 def read_counts(label, names) -> dict:
@@ -573,6 +593,20 @@ def idct_needed_bytes(nfinal, intra_bl, flag_bytes: int) -> int:
     return (nfinal.numel() * (4 + 128) + int((coded & ~dc).sum()) * 128
             + int(dc.sum()) * 2 + int(coded.any(dim=1).sum()) * 512 + 256
             + flag_bytes)
+
+
+def fused_needed_bytes(nfinal, intra_bl, recs, active, mbw: int,
+                       mbh: int) -> int:
+    """K23: the bytes this tick's data needs -- K2's less the residuals
+    it writes, and K3's less the residuals it reads (2 B a pixel of each
+    MB that is not STALE); the intra flags and qscales come with the
+    records."""
+    import torch
+    from espflix_tpu_torch.ops import vlc_scan as VS
+    kind = torch.where(active.bool()[:, None], recs & 3, VS.MB_STALE)
+    coded = int((kind != VS.MB_STALE).sum())
+    return (idct_needed_bytes(nfinal, intra_bl, 0) - nfinal.numel() * 128
+            + compose_needed_bytes(recs, active, mbw, mbh) - coded * 2 * 384)
 
 
 def max_sm_clock_hz() -> float:
@@ -812,20 +846,20 @@ def sbc_kernel(x, F: int, dev, reps: int, clock_hz: float):
 def compose_check(label, fn, plain, res, recs, active, rand_frames,
                   mbw: int, mbh: int, reps: int):
     """K3 or K3F (fn) against its plain form on fresh random frames --
-    the presented planes and both frame slots -- then timed.  Returns
-    the kernel's presented planes and its numbers (max_abs_err, ms,
-    device_ms, plain_ms, bound_ms, bound_by)."""
+    the presented planes and both frame slots -- then timed (the plain
+    form on its one checked run).  Returns the kernel's presented planes
+    and its numbers (max_abs_err, ms, device_ms, plain_ms, bound_ms,
+    bound_by)."""
     fr_k = rand_frames()
     fr_p = {k: v.clone() for k, v in fr_k.items()}
     kw = dict(mb_width=mbw, mb_height=mbh)
     pk = fn(res, recs, active, fr_k, **kw)
-    pp = plain(res, recs, active, fr_p, **kw)
+    pp, plain_ms = run_timed(lambda: plain(res, recs, active, fr_p, **kw))
     err = require_equal(label, [(pk[k], pp[k]) for k in "yuv"]
                         + [(fr_k[k], fr_p[k]) for k in "yuv"])
     stats = dict(max_abs_err=err,
                  **timed(lambda: fn(res, recs, active, fr_k, **kw), reps),
-                 plain_ms=time_ms(lambda: plain(res, recs, active, fr_p,
-                                                **kw), reps))
+                 plain_ms=plain_ms)
     stats["bound_ms"], stats["bound_by"] = bound(
         compose_needed_bytes(recs, active, mbw, mbh))
     stats["yardstick_ms"] = bound(
@@ -835,23 +869,22 @@ def compose_check(label, fn, plain, res, recs, active, rand_frames,
 
 def idct_T_check(label, coeffs_T, recs, nfinal, xt, chain, reps: int):
     """K2 against its plain form on K1's output of tick `xt`, then
-    timed.  Returns the kernel's residuals and its numbers (max_abs_err,
-    ms, device_ms, plain_ms, bound_ms, bound_by, yardstick_ms)."""
+    timed (the plain form on its one checked run).  Returns the kernel's
+    residuals and its numbers (max_abs_err, ms, device_ms, plain_ms,
+    bound_ms, bound_by, yardstick_ms)."""
     from espflix_tpu_torch.ops import idct as IDCT
-    from espflix_tpu_torch.ops import vlc_scan as VS
 
-    intra_bl = ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1)
-    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
+    intra_bl, qs_bl = IDCT.block_flags(recs)
     idct_args = (coeffs_T, intra_bl, qs_bl, xt["intra_q"],
                  xt["non_intra_q"], nfinal, chain.scale_dct)
     res_k = IDCT.block_residuals_T(*idct_args)
-    res_p = IDCT.block_residuals_T_torch(*idct_args)
+    res_p, plain_ms = run_timed(
+        lambda: IDCT.block_residuals_T_torch(*idct_args))
     stats = dict(
         max_abs_err=require_equal(f"K2 idct ({label} tick)",
                                   [(res_k, res_p)]),
         **timed(lambda: IDCT.block_residuals_T(*idct_args), reps),
-        plain_ms=time_ms(lambda: IDCT.block_residuals_T_torch(*idct_args),
-                         reps))
+        plain_ms=plain_ms)
     stats["bound_ms"], stats["bound_by"] = bound(
         idct_needed_bytes(nfinal, intra_bl, int((nfinal > 0).sum()) * 5))
     stats["yardstick_ms"] = bound(nbytes(*idct_args, res_k))[0]
@@ -861,11 +894,56 @@ def idct_T_check(label, coeffs_T, recs, nfinal, xt, chain, reps: int):
 def p_tick_keys(stats: dict) -> dict:
     """A kernel's numbers on the P-heavy tick, as `<key>_p` entries."""
     return {f"{k}_p": stats[k] for k in ("ms", "device_ms", "plain_ms",
-                                         "bound_ms", "yardstick_ms")}
+                                         "split_ms", "split_device_ms",
+                                         "bound_ms", "yardstick_ms")
+            if k in stats}
+
+
+def fused_check(label, coeffs_T, recs, nfinal, xt, active, rand_frames,
+                chain, mbw: int, mbh: int, reps: int) -> dict:
+    """K23 against K2 then K3 on the card (the split pair, each held to
+    its plain form) on fresh random frames -- the presented planes and
+    both frame slots -- then both timed.  Returns K23's numbers
+    (max_abs_err, ms, device_ms, split_ms, split_device_ms, bound_ms,
+    bound_by, yardstick_ms)."""
+    from espflix_tpu_torch.ops import idct as IDCT
+    from espflix_tpu_torch.ops import mocomp as MC
+
+    kw = dict(mb_width=mbw, mb_height=mbh)
+    intra_bl, qs_bl = IDCT.block_flags(recs)
+    k2_args = (coeffs_T, intra_bl, qs_bl, xt["intra_q"], xt["non_intra_q"],
+               nfinal, chain.scale_dct)
+    k23_args = (coeffs_T, recs, nfinal, xt["intra_q"], xt["non_intra_q"],
+                active)
+
+    def split(fr):
+        return MC.predict_compose_put(IDCT.block_residuals_T(*k2_args),
+                                      recs, active, fr, **kw)
+
+    def fused(fr):
+        return MC.idct_compose_put(*k23_args, fr, scale_dct=chain.scale_dct,
+                                   **kw)
+
+    fr_f = rand_frames()
+    fr_s = {k: v.clone() for k, v in fr_f.items()}
+    pf, ps = fused(fr_f), split(fr_s)
+    stats = dict(max_abs_err=require_equal(
+        f"K23 ({label} tick) vs K2 + K3", [(pf[k], ps[k]) for k in "yuv"]
+        + [(fr_f[k], fr_s[k]) for k in "yuv"]),
+        **timed(lambda: fused(fr_f), reps))
+    pair = timed(lambda: split(fr_s), reps)
+    stats["split_ms"], stats["split_device_ms"] = pair["ms"], \
+        pair["device_ms"]
+    stats["bound_ms"], stats["bound_by"] = bound(fused_needed_bytes(
+        nfinal, intra_bl, recs, active, mbw, mbh))
+    stats["yardstick_ms"] = bound(
+        nbytes(*k23_args, fr_f["parity"], *[fr_f[k] for k in "yuv"])
+        + 2 * nbytes(*[pf[k] for k in "yuv"]))[0]
+    return stats
 
 
 def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
-    """K2F, K3 and K3F against their plain forms on the tests' shared
+    """K2F, K2, K3, K3F and K23 against their plain forms on the tests' shared
     edge case (tools/dense_cases.py) at the bench's picture size:
     vectors at and past every edge with every half-pel phase, STALE /
     SKIP / INTER / INTRA mixes, inactive and all-STALE lanes,
@@ -874,7 +952,6 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
     import torch
     from espflix_tpu_torch.ops import idct as IDCT
     from espflix_tpu_torch.ops import mocomp as MC
-    from espflix_tpu_torch.ops import vlc_scan as VS
     from espflix_tpu_torch.tools.dense_cases import dense_case
 
     c = dense_case(17, mbw, mbh, lanes)
@@ -887,13 +964,20 @@ def dense_edge_case(dev, mbw: int, mbh: int, lanes: int = 256) -> dict:
         IDCT.block_residuals_flat(*args),
         IDCT.block_residuals_flat_torch(*args))])}
     recs, active = t(c["recs"]), t(c["active"])
-    t_args = (t(c["coeffs_T"]),
-              ((recs & 3) == VS.MB_INTRA).repeat_interleave(6, dim=1),
-              ((recs >> 2) & 31).repeat_interleave(6, dim=1), *args[3:],
+    t_args = (t(c["coeffs_T"]), *IDCT.block_flags(recs), *args[3:],
               args[2])
     errs["K2"] = require_equal("K2 idct, edge case", [(
         IDCT.block_residuals_T(*t_args),
         IDCT.block_residuals_T_torch(*t_args))])
+    k23_args = (t(c["coeffs_T"]), recs, args[2], *args[3:], active)
+    fr_k = {k: t(v) for k, v in c["frames"].items()}
+    fr_p = {k: v.clone() for k, v in fr_k.items()}
+    kw = dict(mb_width=mbw, mb_height=mbh)
+    pk = MC.idct_compose_put(*k23_args, fr_k, **kw)
+    pp = MC.idct_compose_put_torch(*k23_args, fr_p, **kw)
+    errs["K23"] = require_equal(
+        "K23 idct + compose, edge case", [(pk[k], pp[k]) for k in "yuv"]
+        + [(fr_k[k], fr_p[k]) for k in "yuv"])
     for name, fn, plain, key in (
             ("K3", MC.predict_compose_put, MC.predict_compose_put_torch,
              "res_T"),
@@ -1877,7 +1961,7 @@ ROUTE_CHECKS = (
     ("pallas full scrolled", ["--pipeline", "pallas", "--scrolled"],
      CHAIN_KERNELS),
     ("pallas decode", ["--pipeline", "pallas", "--stage", "decode"],
-     ("K1_slice_scan_dense", "K2_dequant_idct", "K3_predict_compose_put")),
+     ("K1_slice_scan_dense", "K23_idct_compose_put")),
     ("device full", ["--pipeline", "device"],
      ("K1S_slice_scan_seq", "K2F_dequant_idct_flat",
       "K3F_predict_compose_put_flat", "K4_composite_field_pair",
@@ -1944,7 +2028,7 @@ def stages_phase(dev, smi: str, lanes: int = 64) -> dict:
     reset_counts()
     card = {name: int(fn(d, 0)) for name, fn in stages.items()}
     counts = read_counts("perf_stages", (
-        "K2_dequant_idct", "K3_predict_compose_put",
+        "K2_dequant_idct", "K23_idct_compose_put",
         "K3F_predict_compose_put_flat", "K3P_predict",
         "K4_composite_field_pair", "K5_pdm", "K6_sbc_decode"))
     with plain_forms():
@@ -2755,6 +2839,22 @@ def main() -> int:
     kernels[-1]["max_abs_err"] = max(k3_i["max_abs_err"],
                                      k3_p["max_abs_err"])
     log(f"[kernel] {kernels[-1]}")
+    # K23 (the chain's K2 + K3 in one pass) against the split pair, on
+    # both ticks' levels
+    k23_i, k23_p = (fused_check(label, *lev, xt, act, rand_frames, chain,
+                                mbw, mbh, args.reps)
+                    for label, lev, xt, act in (
+                        ("I", (coeffs_T, recs, nfinal), x, active),
+                        ("P", (coeffs_p, recs_p, nfinal_p), x_p, active_p)))
+    kernels.append(dict(
+        name="K23_idct_compose_put", route="cuda",
+        source="espflix_tpu_torch/csrc/compose.cu",
+        replaces="espflix_tpu/ops/idct_pallas.py:171 + "
+        "espflix_tpu/ops/mocomp_pallas.py:975,1084",
+        library_ms=None, **k23_i, **p_tick_keys(k23_p)))
+    kernels[-1]["max_abs_err"] = max(k23_i["max_abs_err"],
+                                     k23_p["max_abs_err"])
+    log(f"[kernel] {kernels[-1]}")
 
     comp_args = (pk["y"], pk["u"], pk["v"], x["parity"], x["osd"],
                  x["blend"], x["progress"])
@@ -2879,6 +2979,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         chain_counts[label] = counts = read_counts(f"chain {label}",
                                                    CHAIN_KERNELS)
+        require_unlaunched(f"chain {label}", SPLIT_KERNELS)
         if label == "win=0":
             # the presented planes of each tick, for phase 4o
             presented = [tuple(outs[k][t] for k in "yuv")
@@ -2918,6 +3019,7 @@ def main() -> int:
     CH.run_full_chunk(xs_s, fr, sb, ds, tap_idx, slide, tap=1, **kw_s)
     torch.cuda.synchronize()
     chain_counts["scrolled"] = read_counts("chain scrolled", CHAIN_KERNELS)
+    require_unlaunched("chain scrolled", SPLIT_KERNELS)
     log(f"[chain scrolled] {K_s} ticks, {int((hs != 0).any(0).sum())} of "
         f"{N} lanes mid-slide, launches {chain_counts['scrolled']}")
     compare_plain("scrolled", xs_s, kw_s, K_s, slide=slide)
@@ -3008,7 +3110,8 @@ def main() -> int:
         k["launches"] = serve_counts.get(
             k["name"], decode_counts.get(k["name"],
                                          mesh_counts.get(k["name"])))
-        if not k["launches"]:
+        # K3 has no path of its own since K23 took its place
+        if not k["launches"] and k["name"] != "K3_predict_compose_put":
             raise AssertionError(f"{k['name']}: no launch on its path")
 
     # ---- 9. results ------------------------------------------------------

@@ -40,6 +40,7 @@ SIGNATURES = {
     "esp_idct_flat": "p" * 7 + "i" * 2,
     "esp_compose_put": "p" * 10 + "i" * 3,
     "esp_compose_put_flat": "p" * 10 + "i" * 3,
+    "esp_idct_compose_put": "p" * 14 + "i" * 3,
     "esp_predict": "p" * 6 + "i" * 9,
     "esp_composite_parts": "p" * 12 + "i" * 7,
     "esp_pdm": "p" * 4 + "i" * 2,
@@ -50,7 +51,7 @@ SIGNATURES = {
 RESOURCES = ("esp_scan_resources", "esp_compose_resources",
              "esp_idct_resources", "esp_composite_resources",
              "esp_sbc_resources")
-MAX_RESOURCE_KERNELS = 8                # kernels an entry may report
+MAX_RESOURCE_KERNELS = 12               # kernels an entry may report
 
 _lib = None
 _lib_device: int | None = None          # the library's current device

@@ -1,4 +1,6 @@
-// K3 -- half-pel MB prediction fused with compose and the parity put.
+// K3 -- half-pel MB prediction fused with compose and the parity put;
+// K23 (below) -- K2's dequant and IDCT fused into K3, the main path's
+// decode of an MB row in one pass.
 //
 // Replaces: espflix_tpu/ops/mocomp_pallas.py _phase2p_kernel (luma,
 // predict_plane_phase2p) and _packedp_kernel (u+v,
@@ -101,6 +103,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "idct.cuh"
 #include "resources.cuh"
 
 namespace {
@@ -227,6 +230,60 @@ __device__ __forceinline__ void compose_row(const uint8_t* ref, uint8_t* cur,
   store_row<S>(out, v);
 }
 
+// thread (yi, c)'s rows of MB (r, c) of lane n: luma row yi and chroma
+// row yi & 7, of u for yi < 8 and of v otherwise -- in the parity slot
+// (cur, read and written in place), the reference slot (ref, the whole
+// plane) and the presented planes (out)
+struct MbRows {
+  uint8_t *cur_y, *cur_c, *out_y, *out_c;
+  const uint8_t *ref_y, *ref_c;
+};
+
+__device__ __forceinline__ MbRows mb_rows(uint8_t* fy, uint8_t* fu,
+                                          uint8_t* fv, uint8_t* py,
+                                          uint8_t* pu, uint8_t* pv, int n,
+                                          int par, int r, int c, int yi,
+                                          int mbw, int mbh) {
+  const int W = mbw * 16, H = mbh * 16;
+  const size_t ypx = (size_t)H * W, cpx = ypx / 4;
+  const size_t yat = (size_t)(r * 16 + yi) * W + c * 16;
+  const size_t cat = (size_t)(r * 8 + (yi & 7)) * (W / 2) + c * 8;
+  uint8_t* fc = yi < 8 ? fu : fv;
+  MbRows m;
+  m.cur_y = fy + ((size_t)n * 2 + par) * ypx + yat;
+  m.cur_c = fc + ((size_t)n * 2 + par) * cpx + cat;
+  m.ref_y = fy + ((size_t)n * 2 + 1 - par) * ypx;
+  m.ref_c = fc + ((size_t)n * 2 + 1 - par) * cpx;
+  m.out_y = py + n * ypx + yat;
+  m.out_c = (yi < 8 ? pu : pv) + n * cpx + cat;
+  return m;
+}
+
+// a STALE MB's rows, and every MB's of an inactive lane: out from cur,
+// cur left as it is
+__device__ __forceinline__ void keep_rows(const MbRows& m) {
+  *reinterpret_cast<uint4*>(m.out_y) =
+      *reinterpret_cast<const uint4*>(m.cur_y);
+  *reinterpret_cast<uint2*>(m.out_c) =
+      *reinterpret_cast<const uint2*>(m.cur_c);
+}
+
+// an INTRA or predicted MB's rows (record rec) into cur and out, from
+// the thread's residuals as int16 pairs: ry luma pixels 0-15, rc chroma
+// pixels 0-7
+__device__ __forceinline__ void compose_rows(const MbRows& m, int rec,
+                                             int mbw, int mbh, int r,
+                                             int c, int yi,
+                                             const uint32_t (&ry)[8],
+                                             const uint32_t (&rc)[4]) {
+  const int W = mbw * 16, H = mbh * 16, kind = rec & 3;
+  const int mvx = sext12(rec >> 7), mvy = sext12(rec >> 19);
+  compose_row<16>(m.ref_y, m.cur_y, m.out_y, W, H, kind, mvx, mvy, c, r,
+                  yi, ry);
+  compose_row<8>(m.ref_c, m.cur_c, m.out_c, W / 2, H / 2, kind, mvx >> 1,
+                 mvy >> 1, c, r, yi & 7, rc);
+}
+
 // FLAT = false: residuals res int16[N, 64, BL] (K2's output); FLAT =
 // true: res int16[N, BL, 64] (K2F's output).  Grid (mbh, N), blockDim
 // (16, mbw): thread (yi, c) owns luma row yi and chroma row yi & 7 (u
@@ -243,7 +300,7 @@ __global__ void __launch_bounds__(1024)
   extern __shared__ uint4 sres[];    // K3: [mbw * 6][RES_STRIDE / 8]
   const int yi = threadIdx.x, c = threadIdx.y;
   const int r = blockIdx.x, n = blockIdx.y;
-  const int W = mbw * 16, H = mbh * 16, BL = mbw * mbh * 6;
+  const int BL = mbw * mbh * 6;
   const bool live = active[n] != 0;
   const int par = parity[n];
   const int rec = recs[(size_t)n * mbw * mbh + r * mbw + c];
@@ -275,25 +332,15 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
   }
 
-  const int yc = yi & 7, Wc = W / 2, Hc = H / 2;
-  const size_t ypx = (size_t)H * W, cpx = ypx / 4;
-  const size_t yat = (size_t)(r * 16 + yi) * W + c * 16;
-  const size_t cat = (size_t)(r * 8 + yc) * Wc + c * 8;
-  uint8_t* cur_y = fy + ((size_t)n * 2 + par) * ypx;
-  uint8_t* fc = yi < 8 ? fu : fv;
-  uint8_t* cur_c = fc + ((size_t)n * 2 + par) * cpx;
-  uint8_t* out_y = py + n * ypx + yat;
-  uint8_t* out_c = (yi < 8 ? pu : pv) + n * cpx + cat;
+  const MbRows m = mb_rows(fy, fu, fv, py, pu, pv, n, par, r, c, yi, mbw,
+                           mbh);
   if (kind == MB_STALE) {              // and every MB of an inactive lane
-    *reinterpret_cast<uint4*>(out_y) =
-        *reinterpret_cast<const uint4*>(cur_y + yat);
-    *reinterpret_cast<uint2*>(out_c) =
-        *reinterpret_cast<const uint2*>(cur_c + cat);
+    keep_rows(m);
     return;
   }
 
   // the thread's block rows: luma blocks blk, blk + 1, chroma 4 + (yi >> 3)
-  const int blk = (yi >> 3) * 2, cblk = 4 + (yi >> 3);
+  const int yc = yi & 7, blk = (yi >> 3) * 2, cblk = 4 + (yi >> 3);
   uint32_t ry[8], rc[4];
   if (FLAT) {
     const uint4* b = reinterpret_cast<const uint4*>(
@@ -307,11 +354,344 @@ __global__ void __launch_bounds__(1024)
     unpack(b[(blk + 1) * (RES_STRIDE / 8) + yc], ry + 4);
     unpack(b[cblk * (RES_STRIDE / 8) + yc], rc);
   }
-  const int mvx = sext12(rec >> 7), mvy = sext12(rec >> 19);
-  compose_row<16>(fy + ((size_t)n * 2 + 1 - par) * ypx, cur_y + yat, out_y,
-                  W, H, kind, mvx, mvy, c, r, yi, ry);
-  compose_row<8>(fc + ((size_t)n * 2 + 1 - par) * cpx, cur_c + cat, out_c,
-                 Wc, Hc, kind, mvx >> 1, mvy >> 1, c, r, yc, rc);
+  compose_rows(m, rec, mbw, mbh, r, c, yi, ry, rc);
+}
+
+// ---------------------------------------------------------------------
+// K23 (esp_idct_compose_put) -- dequant, IDCT, prediction, compose and
+// the parity put of one MB row, the residuals kept in shared memory.
+//
+// Replaces, on the main path (models/mpeg1.dense_compose on the card:
+// the chain, the coeffs_T decode): K2 then K3, i.e.
+// espflix_tpu/ops/idct_pallas.py _kernel_T (block_residuals_T_pallas),
+// then mocomp_pallas.py _phase2p_kernel (luma) and _packedp_kernel (u +
+// v, accum=True) with the residual-plane assembly, compose and put of
+// espflix_tpu/models/mpeg1.dense_compose (coeffs_T path,
+// mpeg1.py:562-664).  K2 stays for the mesh (dense_compose_unfused), K3
+// for the split checks of chip_smoke.py and tools/kernel_ab.py.
+//
+// What bounds it on an H100: memory.  A 352x192 lane moves ~616 KB:
+// its levels int16[64, 1584] (202,752 B), nfinal (6,336), records
+// (1,056), quantiser matrices (512), the parity slot read and written
+// and the presented planes written (101,376 B each), and the reference
+// windows its predicted MBs read (at most 101,376).  K2 + K3 moved
+// ~1,036 KB: K2 wrote the residuals (202,752 B, a full tile that is 0
+// or the DC for the blocks without butterflies) and K3 read them back,
+// and the per-block intra flags and qscales (7,920 B) went through two
+// torch passes to K2.  At 8,192 lanes that is ~3.4 GB a tick less.
+//
+// The design.  K3's threads: thread (yi, c) of blockDim (16, mbw) owns
+// K3's luma row yi and chroma row yi & 7 of MB c.  A block
+// takes `rows` MB rows of one lane in turn (a whole lane's at 8,192
+// lanes, fewer when the lanes alone would not give each SM
+// K23_BLOCKS_PER_SM blocks), so that the next row's levels load while
+// this row composes.  A row's phases, between __syncthreads:
+//   * staged (while the row before composes): the row's [64][6 mbw]
+//     levels copied with cp.async into a position-major level tile, as
+//     K2 stages its tile, in the widest vector the levels' alignment
+//     allows (V = 4 at 352x192: a row of 132 blocks is 264 B, so it
+//     starts 8-byte aligned); thread t < 6 mbw reads block t's nfinal
+//     and, from its MB's record, the intra flag and qscale (no
+//     per-block flag tensors), and votes whether the block runs the
+//     butterflies: coded, not the non-intra DC shortcut, not in a STALE
+//     MB;
+//   * listed: the voted blocks in order, and a fill value for every
+//     other block -- 0 (uncoded, whatever levels it holds) or its DC
+//     (the shortcut);
+//   * butterflies: each warp takes four listed blocks at a time; thread
+//     j of a group dequantises column j from the level tile and runs
+//     the column pass, the 8 x 8 tile turns across the group's eight
+//     lanes in three xor-shuffle stages (no shared transpose tile), and
+//     it runs the row pass on row j and stores that row as one 16-byte
+//     vector into a block-major residual tile [bl][72], K3's staging
+//     layout;
+//   * composed: K3's prediction first, then each block row from the
+//     residual tile (one 16-byte load) or its fill value, then K3's
+//     compose and put, unchanged.
+// An odd mb_width gets one spare column of threads, which stage and
+// run butterflies and compose nothing, so that every warp is whole.
+//
+// Occupancy (measured on an H100 SXM): 64 registers, no spills, 36,416
+// B of dynamic shared memory at 352x192 and 3,200 B static, so two
+// blocks of 352 threads an SM (22 warps of 64), held by the registers.
+// Measured slower at 8,192 lanes: a cap of 56 registers (three blocks
+// an SM, but spills), blocks padded with spare threads to 512 or 1,024,
+// a second level tile to start the next row's copy before the
+// butterflies, and one MB row a block.
+//
+// The two tiles: levels [64][TS] int16 with TS = 8 + 64 k >= 6 mbw
+// (136 at 352x192), so that a copy's rows are 16-byte aligned and a
+// warp's column reads of positions 8 r + j fall in banks 4 j + bl / 2
+// (distinct for the list's neighbouring blocks); residuals [6 mbw][72]
+// int16, so that a group's eight 16-byte row stores and a quarter-
+// warp's eight 16-byte row loads each cover 128 contiguous bytes.  One
+// layout for both would need the levels transposed on their way in,
+// which a copy cannot do.  36,416 B of dynamic shared memory at
+// 352x192 (105,472 at MAX_MB_WIDTH) and 3,200 B static (the flags of
+// two rows, by the row's parity).
+//
+// Bit-exact with K2 then K3, so with idct_pallas.py:180-207,
+// idct.block_residuals_T and the K3 semantics above: K2's dequant and
+// butterflies (idct.cuh), int32 arithmetic that wraps, the residual
+// wrapped to int16 before compose; nfinal 0 gives 0 and the non-intra
+// nfinal 1 shortcut its DC whatever other levels the block holds; a
+// STALE MB and every MB of an inactive lane read no residual and no
+// reference and keep cur.
+// ---------------------------------------------------------------------
+
+constexpr int MAX_ROW_BLOCKS = 6 * MAX_MB_WIDTH;   // blocks of an MB row
+
+// int16 a row of K23's level tile for ncols blocks: the least 8 + 64 k
+// >= ncols -- a multiple of 8 (16-byte rows for the copies) and 4 words
+// past a multiple of the 32 banks, so that a warp's column reads of
+// positions 8 r + j fall in banks 4 j + bl / 2
+__host__ __device__ constexpr int level_stride(int ncols) {
+  return (ncols + 55) / 64 * 64 + 8;
+}
+
+// K23's dynamic shared bytes at mb_width mbw: the residual tile [6 mbw]
+// [RES_STRIDE], then the level tile [64][level_stride(6 mbw)]
+__host__ __device__ constexpr int k23_stage_bytes(int mbw) {
+  return (6 * mbw * RES_STRIDE + 64 * level_stride(6 * mbw)) *
+         (int)sizeof(int16_t);
+}
+
+// an 8 x 8 int32 tile transposed across the eight lanes of a group:
+// lane j holds a[k] = element (k, j) before and (j, k) after.  Three
+// xor stages; at stage m a lane trades the four values whose index
+// differs from its lane in bit m with lane j ^ m
+__device__ __forceinline__ void transpose8(int (&a)[8], int j) {
+#pragma unroll
+  for (int m = 4; m >= 1; m >>= 1) {
+    const bool up = j & m;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i & m) continue;
+      const int got = __shfl_xor_sync(0xFFFFFFFFu, up ? a[i] : a[i | m], m);
+      if (up)
+        a[i] = got;
+      else
+        a[i | m] = got;
+    }
+  }
+}
+
+// block bl's row yc as int16 pairs: from the residual tile where the
+// block ran the butterflies (bit bl of full), else its fill value
+__device__ __forceinline__ void block_row(const int16_t* rs,
+                                          const uint32_t* full,
+                                          const int16_t* fill, int bl,
+                                          int yc, uint32_t* w) {
+  if (full[bl >> 5] >> (bl & 31) & 1) {
+    unpack(reinterpret_cast<const uint4*>(rs + bl * RES_STRIDE)[yc], w);
+  } else {
+    const uint32_t f = (uint16_t)fill[bl];
+    w[0] = w[1] = w[2] = w[3] = f | f << 16;
+  }
+}
+
+// K23: MB row r's levels, [64][6 mbw] of a lane's [64][BL], straight
+// into the level tile lv ([64][TS]; V divides 6 mbw), V int16 a copy;
+// returns block t's flags: bit 0 if its nfinal is 1, qscale | intra <<
+// 5 in bits 8-13 and bit 16 if it runs the butterflies
+template <int V>
+__device__ __forceinline__ int stage_row(const int16_t* lane_lv,
+                                         const int* lane_recs,
+                                         const int* lane_nf, int16_t* lv,
+                                         int r, int t, int nthreads, int mbw,
+                                         int BL, int TS) {
+  const int ncols = 6 * mbw, VPR = ncols / V;
+  const int16_t* src = lane_lv + r * ncols;
+#pragma unroll 1
+  for (int i = t; i < 64 * VPR; i += nthreads) {
+    const int p = i / VPR, e = (i - p * VPR) * V;
+    copy_in<V>(lv + p * TS + e, src + (p * BL + e));
+  }
+  if (t >= ncols) return 0;
+  const int rec = lane_recs[r * mbw + t / 6];
+  const bool intra = (rec & 3) == MB_INTRA;
+  const int nf = lane_nf[r * ncols + t];
+  // a STALE MB keeps cur, so its blocks need no residuals
+  const bool full = (rec & 3) != MB_STALE && nf != 0 && !(nf == 1 && !intra);
+  return (nf == 1) | (((rec >> 2) & 31) | intra << 5) << 8 | full << 16;
+}
+
+// K23's compose of thread (yi, c)'s S-pixel row of MB (r, c) (K3's
+// compose_row): the prediction first, then the row of blocks bl (and bl
+// + 1 for luma) from the residual tile or their fill, so that the
+// residual words hold no registers across the reference loads
+template <int S>
+__device__ __forceinline__ void compose_row_staged(
+    const uint8_t* ref, uint8_t* cur, uint8_t* out, int W, int H, int kind,
+    int mvx, int mvy, int c, int r, int yi, const int16_t* rs,
+    const uint32_t* full, const int16_t* fill, int bl) {
+  uint32_t p[S / 4];
+  if (kind != MB_INTRA) {
+    const int xh = c * 2 * S + mvx, yh = r * 2 * S + mvy;
+    predict_row<S>(ref, W, H, clampi(xh >> 1, 0, W - S),
+                   clampi(yh >> 1, 0, H - S) + yi, xh & 1, yh & 1, p);
+  }
+  uint32_t res[S / 2], v[S / 4];
+  block_row(rs, full, fill, bl, yi & 7, res);
+  if (S == 16) block_row(rs, full, fill, bl + 1, yi & 7, res + 4);
+#pragma unroll
+  for (int k = 0; k < S / 4; ++k)
+    v[k] = kind == MB_INTRA
+               ? __byte_perm(pin2(res[2 * k]), pin2(res[2 * k + 1]), 0x6420)
+               : compose4(p[k], res[2 * k], res[2 * k + 1]);
+  store_row<S>(cur, v);
+  store_row<S>(out, v);
+}
+
+// Grid (ceil(mbh / rows), N), blockDim (16, mbw + (mbw & 1)): the block
+// takes MB rows blockIdx.x * rows .. + rows - 1 of lane blockIdx.y in
+// turn, thread (yi, c) K3's rows of MB c of each; an odd mb_width's
+// spare column of threads stages and runs butterflies only.  Levels
+// coeffs_T int16[N, 64, BL], V int16 a copy.
+template <int V>
+__global__ void __launch_bounds__(1024)
+    idct_compose_put_kernel(const int16_t* __restrict__ coeffs_T,
+                            const int* __restrict__ recs,
+                            const int* __restrict__ nfinal,
+                            const int* __restrict__ intra_q,
+                            const int* __restrict__ non_intra_q,
+                            const int* __restrict__ scale,
+                            const uint8_t* __restrict__ active,
+                            const int* __restrict__ parity, uint8_t* fy,
+                            uint8_t* fu, uint8_t* fv,
+                            uint8_t* __restrict__ py,
+                            uint8_t* __restrict__ pu,
+                            uint8_t* __restrict__ pv, int mbw, int mbh,
+                            int rows) {
+  extern __shared__ uint4 stage[];          // residuals, then levels
+  __shared__ int qm[TILE + 64];             // non-intra at 0, intra at TILE
+  __shared__ int sc[64];
+  // by the row's parity, written before the barrier that frees the
+  // other row's: bit b, block b runs the butterflies; qscale | intra << 5
+  __shared__ uint32_t full_s[2][MAX_ROW_BLOCKS / 32];
+  __shared__ uint8_t bq[2][MAX_ROW_BLOCKS];
+  __shared__ uint16_t list[MAX_ROW_BLOCKS]; // the row's such blocks
+  // the residual of a block without butterflies: 0, or its DC
+  __shared__ int16_t fill[MAX_ROW_BLOCKS];
+  const int yi = threadIdx.x, c = threadIdx.y;
+  const int t = yi + 16 * c, nthreads = 16 * blockDim.y;
+  const int n = blockIdx.y, r0 = blockIdx.x * rows;
+  const int r1 = r0 + rows < mbh ? r0 + rows : mbh;
+  const int MB = mbw * mbh, ncols = 6 * mbw, BL = 6 * MB;
+  const int par = parity[n];
+  if (!active[n]) {                         // every MB keeps cur
+    if (c < mbw)
+      for (int r = r0; r < r1; ++r)
+        keep_rows(mb_rows(fy, fu, fv, py, pu, pv, n, par, r, c, yi, mbw,
+                          mbh));
+    return;
+  }
+
+  int16_t* rs = reinterpret_cast<int16_t*>(stage);  // [ncols][RES_STRIDE]
+  const int TS = level_stride(ncols);
+  int16_t* lv = rs + ncols * RES_STRIDE;            // [64][TS]
+  const int16_t* lane_lv = coeffs_T + (size_t)n * 64 * BL;
+  const int* lane_recs = recs + (size_t)n * MB;
+  const int* lane_nf = nfinal + (size_t)n * BL;
+  for (int i = t; i < 64; i += nthreads) {
+    qm[i] = non_intra_q[n * 64 + i];
+    qm[TILE + i] = intra_q[n * 64 + i];
+    sc[i] = scale[i];
+  }
+  int flags = stage_row<V>(lane_lv, lane_recs, lane_nf, lv, r0, t,
+                          nthreads, mbw, BL, TS);
+  const int g4 = (t >> 3) & 3, j = t & 7;
+  for (int r = r0; r < r1; ++r) {
+    const int s = r & 1, q = flags >> 8 & 63;
+    const bool full = flags >> 16;
+    const uint32_t vote = __ballot_sync(0xFFFFFFFFu, full);
+    if (t < ncols) {
+      bq[s][t] = (uint8_t)q;
+      if ((t & 31) == 0) full_s[s][t >> 5] = vote;
+    }
+    // the row's levels are in; the last row's compose is done with the
+    // residual tile and fill
+    copy_wait();
+    __syncthreads();
+
+    int nfull = 0;
+    for (int k = 0; k < (ncols + 31) >> 5; ++k) nfull += __popc(full_s[s][k]);
+    if (t < ncols) {
+      if (full) {
+        int pos = __popc(full_s[s][t >> 5] & ((1u << (t & 31)) - 1));
+        for (int k = 0; k < (t >> 5); ++k) pos += __popc(full_s[s][k]);
+        list[pos] = (uint16_t)t;
+      }
+      // an uncoded block's residuals are 0, a DC shortcut's its DC
+      fill[t] = (flags & 1) && !full
+                    ? (int16_t)(dequant(lv[t], 0, false, q & 31, qm, sc) >> 8)
+                    : 0;
+    }
+    __syncthreads();
+
+    // the butterflies, four listed blocks a warp at a time: thread j of
+    // the warp's group g4 dequantises column j of block list[base + g4]
+    // and runs the column pass, the tile turns across the group's
+    // lanes, and it runs the row pass on row j and stores that row as
+    // one 16-byte vector into the block's residual rows; a group past
+    // the list repeats the warp's first block and stores nothing, so
+    // that the warp stays converged
+#pragma unroll 1
+    for (int base = (t >> 5) * 4; base < nfull;
+         base += (nthreads >> 5) * 4) {
+      const bool act = base + g4 < nfull;
+      const int b = list[act ? base + g4 : base];
+      const int16_t* col = lv + b;            // (p, b) at col[p * TS]
+      const int qb = bq[s][b];
+      const bool intra = qb >> 5;
+      const int* qmat = qm + (intra ? TILE : 0);
+      int cv[8], o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int lev = col[(8 * k + j) * TS];
+        // a zero level dequantises to 0 (an intra DC too)
+        cv[k] = __any_sync(0xFFFFFFFFu, lev != 0)
+                    ? dequant(lev, 8 * k + j, intra, qb & 31, qmat, sc)
+                    : 0;
+      }
+      butterfly(cv, o, false);                // column j: o[k] = (k, j)
+      transpose8(o, j);                       // o[k] = (j, k)
+      butterfly(o, cv, true);                 // row j, final rounding
+      if (act) {
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          w[k] = (uint32_t)(uint16_t)cv[2 * k] |
+                 (uint32_t)(uint16_t)cv[2 * k + 1] << 16;
+        reinterpret_cast<uint4*>(rs + b * RES_STRIDE)[j] =
+            make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    }
+    // the residual tile is whole and the level tile free: the next
+    // row's levels and flags load while this row composes (a second
+    // level tile, to load them earlier, measured slower)
+    __syncthreads();
+    if (r + 1 < r1)
+      flags = stage_row<V>(lane_lv, lane_recs, lane_nf, lv, r + 1, t,
+                           nthreads, mbw, BL, TS);
+
+    if (c >= mbw) continue;                   // a spare column
+    const int rec = lane_recs[r * mbw + c];
+    const MbRows m = mb_rows(fy, fu, fv, py, pu, pv, n, par, r, c, yi, mbw,
+                             mbh);
+    if ((rec & 3) == MB_STALE) {
+      keep_rows(m);
+      continue;
+    }
+    // the thread's block rows: luma blocks bl, bl + 1, chroma 4 + (yi >> 3)
+    const int kind = rec & 3, mvx = sext12(rec >> 7), mvy = sext12(rec >> 19);
+    const int W = mbw * 16, H = mbh * 16, bl = c * 6 + (yi >> 3) * 2;
+    compose_row_staged<16>(m.ref_y, m.cur_y, m.out_y, W, H, kind, mvx, mvy,
+                           c, r, yi, rs, full_s[s], fill, bl);
+    compose_row_staged<8>(m.ref_c, m.cur_c, m.out_c, W / 2, H / 2, kind,
+                          mvx >> 1, mvy >> 1, c, r, yi & 7, rs, full_s[s],
+                          fill, c * 6 + 4 + (yi >> 3));
+  }
 }
 
 // one S-pixel row of an MB's half-pel prediction with each tap clamped
@@ -394,22 +774,79 @@ void launch_predict(const void* ref, const void* ref2, const void* mvh,
       row0);
 }
 
-// K3's stage takes 864 B an MB column, over the 48 KB default from
-// mb_width 57 on: raise its limit to MAX_MB_WIDTH columns once for each
-// device (a function attribute belongs to the device's context), not
-// on every launch
-cudaError_t allow_k3_stage() {
-  static std::atomic<unsigned long long> raised{0};   // a bit a device
+// raise a kernel's dynamic shared memory limit to `bytes` once for each
+// device (a function attribute belongs to the device's context), not on
+// every launch; raised holds a bit a device
+cudaError_t allow_stage(const void* fn, int bytes,
+                        std::atomic<unsigned long long>& raised) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  e = cudaFuncSetAttribute(
-      compose_put_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      MAX_MB_WIDTH * 6 * RES_STRIDE * (int)sizeof(int16_t));
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
   if (e == cudaSuccess) raised.fetch_or(bit);
   return e;
+}
+
+// K3's stage takes 864 B an MB column, over the 48 KB default from
+// mb_width 57 on: its limit is MAX_MB_WIDTH columns
+cudaError_t allow_k3_stage() {
+  static std::atomic<unsigned long long> raised{0};
+  return allow_stage((const void*)compose_put_kernel<false>,
+                     MAX_MB_WIDTH * 6 * RES_STRIDE * (int)sizeof(int16_t),
+                     raised);
+}
+
+// K23's stage, 36,416 B at mb_width 22 and 105,472 at MAX_MB_WIDTH
+template <int V>
+cudaError_t allow_k23_stage() {
+  static std::atomic<unsigned long long> raised{0};
+  return allow_stage((const void*)idct_compose_put_kernel<V>,
+                     k23_stage_bytes(MAX_MB_WIDTH), raised);
+}
+
+// MB rows a K23 block takes: a whole lane's where the lanes alone give
+// the card K23_BLOCKS_PER_SM blocks an SM, so that each block's next
+// row loads while its row composes; fewer where they do not
+constexpr int K23_BLOCKS_PER_SM = 8;
+
+int k23_rows(int N, int mbh) {
+  static std::atomic<int> sms{0};
+  int m = sms.load(std::memory_order_relaxed);
+  if (m == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      m = 132;                              // an H100 SXM
+    sms.store(m, std::memory_order_relaxed);
+  }
+  const long want = (long)K23_BLOCKS_PER_SM * m;
+  const int per_lane = (int)std::min<long>(mbh, (want + N - 1) / N);
+  return (mbh + per_lane - 1) / per_lane;
+}
+
+template <int V>
+int launch_idct_compose_put(const void* coeffs_T, const void* recs,
+                            const void* nfinal, const void* intra_q,
+                            const void* non_intra_q, const void* scale,
+                            const void* active, const void* parity,
+                            void* fy, void* fu, void* fv, void* py,
+                            void* pu, void* pv, int N, int mbw, int mbh,
+                            cudaStream_t stream) {
+  const cudaError_t e = allow_k23_stage<V>();
+  if (e != cudaSuccess) return (int)e;
+  const int rows = k23_rows(N, mbh);
+  const dim3 grid((mbh + rows - 1) / rows, N), block(16, mbw + (mbw & 1));
+  idct_compose_put_kernel<V><<<grid, block, k23_stage_bytes(mbw), stream>>>(
+      (const int16_t*)coeffs_T, (const int*)recs, (const int*)nfinal,
+      (const int*)intra_q, (const int*)non_intra_q, (const int*)scale,
+      (const uint8_t*)active, (const int*)parity, (uint8_t*)fy,
+      (uint8_t*)fu, (uint8_t*)fv, (uint8_t*)py, (uint8_t*)pu, (uint8_t*)pv,
+      mbw, mbh, rows);
+  return (int)cudaGetLastError();
 }
 
 template <bool FLAT>
@@ -452,6 +889,33 @@ extern "C" int esp_compose_put_flat(const void* res, const void* recs,
                                   pu, pv, N, mbw, mbh, stream);
 }
 
+// K23: coeffs_T int16[N, 64, mbw * mbh * 6] (2-byte aligned), recs /
+// nfinal / intra_q / non_intra_q / scale / active / parity as K2's and
+// K3's operands, frames and presented planes as K3's (16-byte aligned).
+// The widest copy that the levels' alignment allows: V = 8, 4, 2 or 1
+// int16 (4 at 352x192: an MB row's 132 blocks start 8-byte aligned).
+extern "C" int esp_idct_compose_put(const void* coeffs_T, const void* recs,
+                                    const void* nfinal, const void* intra_q,
+                                    const void* non_intra_q,
+                                    const void* scale, const void* active,
+                                    const void* parity, void* fy, void* fu,
+                                    void* fv, void* py, void* pu, void* pv,
+                                    int N, int mbw, int mbh, void* stream) {
+  if (mbw < 1 || mbw > MAX_MB_WIDTH || mbh < 1 || N < 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaSuccess;
+  const uintptr_t a = (uintptr_t)coeffs_T |
+                      (uintptr_t)(6 * mbw * mbh) * sizeof(int16_t) |
+                      (uintptr_t)(6 * mbw) * sizeof(int16_t);
+  const auto launch = a % 16 == 0 ? launch_idct_compose_put<8>
+                      : a % 8 == 0 ? launch_idct_compose_put<4>
+                      : a % 4 == 0 ? launch_idct_compose_put<2>
+                                   : launch_idct_compose_put<1>;
+  return launch(coeffs_T, recs, nfinal, intra_q, non_intra_q, scale, active,
+                parity, fy, fu, fv, py, pu, pv, N, mbw, mbh,
+                (cudaStream_t)stream);
+}
+
 // ref / ref2 uint8[N, H, W] (4-byte aligned); mvh / mvv int32[N,
 // mbh_loc, mbw] (half-pel, at the plane's scale); out / out2 uint8[N,
 // mbh_loc * S, W] (S-byte aligned); S is 16 or 8 and W = mbw * S.
@@ -477,8 +941,9 @@ extern "C" int esp_predict(const void* ref, const void* ref2,
   return (int)cudaGetLastError();
 }
 
-// K3's, K3F's and K3P's registers, local and static shared bytes and
-// largest block on the current device (resources.cuh).
+// K3's, K3F's, K3P's and K23's (at each copy width) registers, local and
+// static shared bytes and largest block on the current device
+// (resources.cuh).
 extern "C" int esp_compose_resources(int* out, const char** names,
                                      int cap) {
   const void* fns[] = {(const void*)compose_put_kernel<false>,
@@ -486,10 +951,16 @@ extern "C" int esp_compose_resources(int* out, const char** names,
                        (const void*)predict_kernel<16, false>,
                        (const void*)predict_kernel<8, false>,
                        (const void*)predict_kernel<16, true>,
-                       (const void*)predict_kernel<8, true>};
+                       (const void*)predict_kernel<8, true>,
+                       (const void*)idct_compose_put_kernel<8>,
+                       (const void*)idct_compose_put_kernel<4>,
+                       (const void*)idct_compose_put_kernel<2>,
+                       (const void*)idct_compose_put_kernel<1>};
   const char* kernel_names[] = {
       "compose_put_kernel<false>", "compose_put_kernel<true>",
       "predict_kernel<16, false>", "predict_kernel<8, false>",
-      "predict_kernel<16, true>", "predict_kernel<8, true>"};
-  return kernel_resources(fns, kernel_names, 6, out, names, cap);
+      "predict_kernel<16, true>", "predict_kernel<8, true>",
+      "idct_compose_put_kernel<8>", "idct_compose_put_kernel<4>",
+      "idct_compose_put_kernel<2>", "idct_compose_put_kernel<1>"};
+  return kernel_resources(fns, kernel_names, 10, out, names, cap);
 }

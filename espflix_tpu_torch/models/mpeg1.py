@@ -4,9 +4,10 @@ Host side (numpy, models/mpeg1_host.py, re-exported here): start-code
 scan, ES segmentation into PictureData records, and batch assembly.
 
 Device side: ``dense_compose`` turns the scanner's dense buffers into
-new frames -- dequant+IDCT (ops/idct.py, K2) and one fused prediction +
-compose + put pass (ops/mocomp.py, K3); ``dense_compose_flat`` does the
-same from the lane-minor buffers (K2F, K3F).  ``dense_compose_unfused``
+new frames in one pass over each MB row -- dequant+IDCT, prediction,
+compose and put (ops/mocomp.idct_compose_put, K23);
+``dense_compose_flat`` does the same from the lane-minor buffers in two
+(K2F, K3F).  ``dense_compose_unfused``
 is the mesh's form: prediction alone (K3P), then compose and put in
 torch ops, with the 'space' split's band prediction.
 ``decode_picture_batch_sliced`` is the decode-only fleet's per-tick
@@ -30,7 +31,6 @@ from espflix_tpu_torch.ops import idct as idct_ops
 from espflix_tpu_torch.ops import mocomp as mocomp_ops
 from espflix_tpu_torch.ops import scan_dense as SD
 from espflix_tpu_torch.ops import vlc_scan as VS
-from espflix_tpu_torch.ops.vlc_scan import MB_INTRA
 
 
 def init_frame_state(n_lanes: int, width: int, height: int,
@@ -55,7 +55,9 @@ def dense_compose(coeffs_T, recs, nfinal, intra_q, non_intra_q, active,
                   frames, *, mb_width: int, mb_height: int,
                   scale_dct: torch.Tensor | None = None):
     """Dequant+IDCT, then prediction + compose + put, on the coeffs_T
-    path of espflix_tpu.models.mpeg1.dense_compose.
+    path of espflix_tpu.models.mpeg1.dense_compose: one pass over each
+    MB row on the card (K23), K2's and K3's plain forms in turn on the
+    CPU.
 
     coeffs_T int16[N, 64, MB*6]; recs int32[N, MB]; nfinal int32[N,
     MB*6]; intra_q/non_intra_q int32[N, 64]; active bool[N].  frames
@@ -66,14 +68,9 @@ def dense_compose(coeffs_T, recs, nfinal, intra_q, non_intra_q, active,
     flip (the reference behaviour).  Returns (frames, presented) where
     presented y/u/v are new [N, H, W] tensors.
     """
-    intra_bl = ((recs & 3) == MB_INTRA).repeat_interleave(6, dim=1)
-    qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
-    res_T = idct_ops.block_residuals_T(
-        coeffs_T, intra_bl, qs_bl, intra_q, non_intra_q, nfinal,
-        scale_dct=scale_dct)
-    presented = mocomp_ops.predict_compose_put(
-        res_T, recs, active, frames, mb_width=mb_width,
-        mb_height=mb_height)
+    presented = mocomp_ops.idct_compose_put(
+        coeffs_T, recs, nfinal, intra_q, non_intra_q, active, frames,
+        mb_width=mb_width, mb_height=mb_height, scale_dct=scale_dct)
     parity = frames["parity"]
     frames["parity"] = torch.where(active, 1 - parity, parity)
     return frames, presented
@@ -117,8 +114,7 @@ def dense_compose_unfused(coeffs, recs, nfinal, intra_q, non_intra_q,
     torch ops (mpeg1.py:611-665).  Same in-place contract and returns as
     dense_compose."""
     if transposed:
-        intra_bl = ((recs & 3) == MB_INTRA).repeat_interleave(6, dim=1)
-        qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
+        intra_bl, qs_bl = idct_ops.block_flags(recs)
         res = idct_ops.block_residuals_T(
             coeffs, intra_bl, qs_bl, intra_q, non_intra_q, nfinal,
             scale_dct=scale_dct)

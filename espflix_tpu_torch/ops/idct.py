@@ -210,8 +210,9 @@ def block_residuals_T(coeffs_T, intra_bl, qs_bl, intra_q, non_intra_q,
 # lane-minor form (K2F): [N, MB*384] levels -> [N, MB*6, 64] residuals
 # ---------------------------------------------------------------------------
 
-def _flat_blocks(recs):
-    """Per-block intra flag and qscale from the MB records."""
+def block_flags(recs):
+    """Per-block intra flag bool[N, MB*6] and qscale int32[N, MB*6] from
+    the MB records int32[N, MB]."""
     intra_bl = ((recs & 3) == MB_INTRA).repeat_interleave(6, dim=1)
     qs_bl = ((recs >> 2) & 31).repeat_interleave(6, dim=1)
     return intra_bl, qs_bl
@@ -224,7 +225,7 @@ def block_residuals_flat_torch(coeffs, recs, nfinal, intra_q, non_intra_q,
     block_residuals_flat)."""
     N = coeffs.shape[0]
     levels_T = coeffs.reshape(N, -1, 64).transpose(1, 2)
-    intra_bl, qs_bl = _flat_blocks(recs)
+    intra_bl, qs_bl = block_flags(recs)
     res_T = block_residuals_T_torch(levels_T, intra_bl, qs_bl, intra_q,
                                     non_intra_q, nfinal, scale_dct)
     return res_T.transpose(1, 2).contiguous()

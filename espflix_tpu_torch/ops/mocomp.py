@@ -1,6 +1,9 @@
 """Half-pel motion compensation, fused with compose and the parity put.
 
-K3 (predict_compose_put) takes K2's [N, 64, BL] residuals; K3F
+K23 (idct_compose_put), the main path's, takes the scanner's raw levels
+[N, 64, BL] and decodes each MB row's residuals in shared memory (K2's
+dequant and IDCT) before K3's prediction, compose and put.  K3
+(predict_compose_put) takes K2's [N, 64, BL] residuals; K3F
 (predict_compose_put_flat) takes K2F's lane-minor [N, MB*6, 64] ones.
 K3P (predict_plane, predict_chroma_pair, predict_plane_rows) predicts
 alone, for the mesh's decoders, which compose in torch ops
@@ -29,9 +32,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from espflix_tpu_torch.ops import idct as idct_ops
 from espflix_tpu_torch.ops.vlc_scan import MAX_MB_WIDTH, MB_INTRA, \
     MB_STALE
 
+launches_fused = 0      # K23 launches (counted by the CUDA path only)
 launches = 0            # K3 launches (counted by the CUDA path only)
 launches_flat = 0       # K3F launches (counted by the CUDA path only)
 launches_predict = 0    # K3P launches (counted by the CUDA path only)
@@ -305,8 +310,10 @@ def predict_compose_put(res_T, recs, active, frames, *, mb_width: int,
 
 
 def _launch_compose(entry, res, res_shape, recs, active, frames,
-                    mb_width: int, mb_height: int):
-    """Check the operands of K3 / K3F and launch C entry `entry`."""
+                    mb_width: int, mb_height: int, extra=()):
+    """Check the operands of K3 / K3F / K23 and launch C entry `entry`
+    (K23's levels in place of the residuals, then its `extra` operands,
+    checked by its wrapper)."""
     if res.device.type != "cuda":
         raise ValueError(f"unsupported device {res.device}")
     from espflix_tpu_torch import build
@@ -323,15 +330,19 @@ def _launch_compose(entry, res, res_shape, recs, active, frames,
     build.check(frames["y"], dev, torch.uint8, (N, 2, H, W))
     build.check(frames["u"], dev, torch.uint8, (N, 2, H // 2, W // 2))
     build.check(frames["v"], dev, torch.uint8, (N, 2, H // 2, W // 2))
-    for t in (res, frames["y"], frames["u"], frames["v"]):
+    # K3 / K3F read residuals as 16-byte vectors; K23 reads its levels
+    # in the widest vectors their alignment allows
+    for t in (frames["y"], frames["u"], frames["v"]) + (() if extra
+                                                        else (res,)):
         if t.data_ptr() % 16:
-            raise ValueError("K3 / K3F move 16-byte vectors: residuals "
-                             "and frames must start 16-byte aligned")
+            raise ValueError("K3 / K3F / K23 move 16-byte vectors: "
+                             "residuals and frames must start 16-byte "
+                             "aligned")
     pres = {k: torch.empty(frames[k].shape[:1] + frames[k].shape[2:],
                            dtype=torch.uint8, device=dev) for k in "yuv"}
-    build.launch(entry, res, recs, active, frames["parity"], frames["y"],
-                 frames["u"], frames["v"], pres["y"], pres["u"], pres["v"],
-                 N, mb_width, mb_height)
+    build.launch(entry, res, recs, *extra, active, frames["parity"],
+                 frames["y"], frames["u"], frames["v"], pres["y"], pres["u"],
+                 pres["v"], N, mb_width, mb_height)
     return pres
 
 
@@ -355,4 +366,52 @@ def predict_compose_put_flat(res, recs, active, frames, *, mb_width: int,
                            (mb_width * mb_height * 6, 64), recs, active,
                            frames, mb_width, mb_height)
     launches_flat += 1
+    return pres
+
+
+def idct_compose_put_torch(coeffs_T, recs, nfinal, intra_q, non_intra_q,
+                           active, frames, *, mb_width: int, mb_height: int,
+                           scale_dct=None):
+    """Plain form of K23: K2's plain form, then K3's (same contract as
+    idct_compose_put)."""
+    intra_bl, qs_bl = idct_ops.block_flags(recs)
+    res_T = idct_ops.block_residuals_T_torch(
+        coeffs_T, intra_bl, qs_bl, intra_q, non_intra_q, nfinal, scale_dct)
+    return predict_compose_put_torch(res_T, recs, active, frames,
+                                     mb_width=mb_width, mb_height=mb_height)
+
+
+def idct_compose_put(coeffs_T, recs, nfinal, intra_q, non_intra_q, active,
+                     frames, *, mb_width: int, mb_height: int,
+                     scale_dct=None):
+    """Dequant + IDCT of the raw levels, then predict_compose_put, with
+    the residuals never leaving the card's shared memory: K2 then K3 in
+    one pass (csrc/compose.cu, K23).
+
+    coeffs_T int16[N, 64, MB*6], nfinal int32[N, MB*6], intra_q /
+    non_intra_q int32[N, 64] and scale_dct int32[64] (SCALE_DCT_Q, made
+    on the device when omitted) as block_residuals_T takes them, the
+    intra flags and qscales read from recs int32[N, MB]; active, frames
+    and the in-place contract as predict_compose_put.  Returns presented
+    y/u/v uint8[N, H, W] as new tensors.  CPU tensors take the plain
+    form; CUDA tensors launch K23."""
+    global launches_fused
+    if coeffs_T.device.type == "cpu":
+        return idct_compose_put_torch(
+            coeffs_T, recs, nfinal, intra_q, non_intra_q, active, frames,
+            mb_width=mb_width, mb_height=mb_height, scale_dct=scale_dct)
+    from espflix_tpu_torch import build
+
+    dev = coeffs_T.device
+    N, BL = recs.shape[0], mb_width * mb_height * 6
+    if scale_dct is None:
+        scale_dct = idct_ops.scale_dct_q(dev)
+    build.check(nfinal, dev, torch.int32, (N, BL))
+    build.check(intra_q, dev, torch.int32, (N, 64))
+    build.check(non_intra_q, dev, torch.int32, (N, 64))
+    build.check(scale_dct, dev, torch.int32, (64,))
+    pres = _launch_compose(
+        "esp_idct_compose_put", coeffs_T, (64, BL), recs, active, frames,
+        mb_width, mb_height, (nfinal, intra_q, non_intra_q, scale_dct))
+    launches_fused += 1
     return pres

@@ -14,9 +14,9 @@ Stages (--stage):
   decode: video decode only.
 
 Routes (--pipeline):
-  pallas (auto): full -- runtime/chain.run_full_chunk (K1, K2, K3, K4,
+  pallas (auto): full -- runtime/chain.run_full_chunk (K1, K23, K4,
       K6, K5); decode -- ops/vlc_scan.run_scan_bucketed_dense +
-      models/mpeg1.dense_compose (K1, K2, K3);
+      models/mpeg1.dense_compose (K1, K23);
   device: models/mpeg1.decode_picture_impl a picture (K1S, K2F, K3F),
       then for the full stage the output tick (synthesize_field_pair,
       K6, K5);

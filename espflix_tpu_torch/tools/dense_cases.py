@@ -1,6 +1,7 @@
-"""One case generator for the dense phase: K2F (idct.block_residuals_flat)
-and K3 / K3F (mocomp.predict_compose_put{,_flat}), their plain forms and
-the JAX package's dense_compose.
+"""One case generator for the dense phase: K2F (idct.block_residuals_flat),
+K3 / K3F (mocomp.predict_compose_put{,_flat}), K23
+(mocomp.idct_compose_put), their plain forms and the JAX package's
+dense_compose.
 
 dense_case(seed, mb_width, mb_height, n_lanes) draws, from a numpy seed:
 
@@ -33,6 +34,7 @@ from espflix_tpu_torch.core import vlc_tables as V
 # 18-block lane), the bench's width, MAX_MB_WIDTH
 SHAPES = ((1, 3), (22, 3), (64, 2))
 ROLES = ("mixed", "inactive", "stale", "predicted")
+VARIANTS = ("mixed", "intra", "stray")
 
 
 def edge_vectors(rng, shape, mb_axis, size):
@@ -50,11 +52,13 @@ def edge_vectors(rng, shape, mb_axis, size):
     return np.clip(mv, -2048, 2047).astype(np.int32)
 
 
-def _records(rng, N, mbh, mbw):
+def _records(rng, N, mbh, mbw, variant):
     shape = (N, mbh, mbw)
     role = np.arange(N)[:, None, None] % 4
     kind = np.where(role == 2, 0, rng.integers(0, 4, shape))
     kind = np.where(role == 3, rng.integers(1, 3, shape), kind)
+    if variant == "intra":
+        kind = np.where(role == 2, 0, 3)
     qs = rng.integers(1, 32, shape)
     mh = edge_vectors(rng, shape, np.arange(mbw)[None, None, :], 16 * mbw)
     mv = edge_vectors(rng, shape, np.arange(mbh)[None, :, None], 16 * mbh)
@@ -80,18 +84,28 @@ def _levels(rng, intra_bl, nf):
 
 
 def dense_case(seed: int, mb_width: int, mb_height: int,
-               n_lanes: int = 4) -> dict:
+               n_lanes: int = 4, variant: str = "mixed") -> dict:
     """A dense-phase case as numpy arrays (see the module docstring):
     recs, coeffs / coeffs_T, nfinal, iq, nq, res / res_T, active,
-    frames (y, u, v, parity), mb_width, mb_height."""
+    frames (y, u, v, parity), mb_width, mb_height.  variant (VARIANTS):
+    "mixed" the lane roles above (a P tick); "intra" every MB of lanes
+    0, 1 and 3 INTRA (an I tick); "stray" levels past each block's
+    nfinal nonzero too -- an uncoded block full of them, a non-intra DC
+    shortcut with nonzero AC: the first must read 0, the second its DC
+    alone."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}")
     rng = np.random.default_rng(seed)
     N, mbw, mbh = n_lanes, mb_width, mb_height
     MB, H, W = mbw * mbh, 16 * mbh, 16 * mbw
     BL = MB * 6
-    recs = _records(rng, N, mbh, mbw)
+    recs = _records(rng, N, mbh, mbw, variant)
     intra_bl = np.repeat((recs & 3) == 3, 6, axis=1)
     nf = rng.choice([0, 1, 2, 5, 64], (N, BL)).astype(np.int32)
     lev = _levels(rng, intra_bl, nf)
+    if variant == "stray":
+        stray = rng.integers(-300, 301, lev.shape).astype(np.int16)
+        lev = np.where(lev == 0, stray, lev)
     iq = np.stack([V.DEFAULT_INTRA_Q if n % 2 == 0 else
                    rng.integers(1, 256, 64) for n in range(N)])
     nq = np.stack([V.DEFAULT_NON_INTRA_Q if n % 2 == 0 else

@@ -18,7 +18,10 @@ chip_smoke.py's k_p): K2 (block_residuals_T) on K1's scan, K3
 (predict_compose_put) on K2's output, K2F (block_residuals_flat) on
 K1F's output in chip_smoke's flat_kernels configuration, K3F
 (predict_compose_put_flat) on K2F's output, K3 and K3F onto seeded
-random frames restored before every run; and K4
+random frames restored before every run; the pair K2 then K3 in one
+run (`K2K3`) and, where the checkout has it, K23 (idct_compose_put, the
+pair in one pass) on K1's levels onto the same restored frames (its
+checksum is K3's); and K4
 (composite.synthesize_field_pair_parts, NTSC and PAL) on K3's
 presented planes of the I-heavy tick, as chip_smoke.py's phase 3 feeds
 it, and the per-field output path on the same planes
@@ -77,7 +80,9 @@ BUSY_CYCLES = 20_000_000    # as chip_smoke.py: ~10 ms at 1,980 MHz
 # width, of which the bench takes 8; its K3P a template on the edge rule
 # alone or on the MB size too)
 PTXAS_SOURCES = ("compose.cu", "idct.cu", "composite.cu", "sbc.cu")
-PTXAS_KERNELS = {"compose_put_kernelILb0": "compose_put_kernel<false>",
+PTXAS_KERNELS = {"idct_compose_put_kernelILi4E": "idct_compose_put_kernel<4>",
+                 "idct_compose_put_kernelILi8E": "idct_compose_put_kernel<8>",
+                 "compose_put_kernelILb0": "compose_put_kernel<false>",
                  "compose_put_kernelILb1": "compose_put_kernel<true>",
                  "predict_kernelILb0": "predict_kernel<false>",
                  "predict_kernelILb1": "predict_kernel<true>",
@@ -362,8 +367,22 @@ def main() -> int:
                 (f"K3_{label}", MC.predict_compose_put, res_T, recs),
                 (f"K3F_{label}", MC.predict_compose_put_flat, res_f,
                  recs_f)):
-            runs[name] = lambda fn=fn, res=res, r=r: compose(fn, res, r)
+            runs[name] = lambda fn=fn, res=res, r=r, cp=compose: cp(
+                fn, res, r)
             setups[name] = restore
+        runs[f"K2K3_{label}"] = lambda a=k2_args, r=recs, cp=compose: cp(
+            MC.predict_compose_put, IDCT.block_residuals_T(*a), r)
+        setups[f"K2K3_{label}"] = restore
+        if hasattr(MC, "idct_compose_put"):     # a checkout with K23
+            def fused(a=(coeffs_T, recs, nfinal, xt["intra_q"],
+                         xt["non_intra_q"], xt["active"]), fr=fr):
+                pres = MC.idct_compose_put(*a, fr, mb_width=mbw,
+                                           mb_height=mbh,
+                                           scale_dct=chain.scale_dct)
+                return [pres[key] for key in "yuv"] + \
+                    [fr[key] for key in "yuv"]
+            runs[f"K23_{label}"] = fused
+            setups[f"K23_{label}"] = restore
         if label == "P":
             recs_p, frames_p = recs, frames0
         if label == "I":

@@ -74,7 +74,7 @@ STAGE_KERNELS = {
     "presented_where": "torch ops: the presented-plane select",
     "compose_fused2": "K3F: ops/mocomp.predict_compose_put_flat (with "
     "the two frame-slot writes that stand for its operands)",
-    "dense_all": "K2 + K3: models/mpeg1.dense_compose",
+    "dense_all": "K23: models/mpeg1.dense_compose",
     "fieldpair": "K4: ops/composite.synthesize_field_pair_parts",
     "fieldpair_full": "K4 + field_canvas: ops/composite."
     "synthesize_field_pair",

@@ -1,6 +1,6 @@
 """The dense phase on the shared edge cases (tools/dense_cases.py):
 K2F's, K3's and K3F's plain forms vs the JAX package on the CPU, and
-the kernels vs those plain forms on the card.
+the kernels (K23 among them) vs those plain forms on the card.
 
 Each case -- mb_width 1 (18 blocks a lane), 22 and 64 (MAX_MB_WIDTH),
 vectors at and past every edge with every half-pel phase, STALE / SKIP
@@ -17,9 +17,13 @@ levels and residuals -- goes through:
     packedp(accum=True), the TPU path's K3 kernels, in interpret mode
     (they take planes up to 383 pixels wide: mb_width 1 and 22) against
     the port's prediction with the case's vectors;
+  * the coeffs_T path on the case's variants -- an I tick, stray levels
+    past nfinal, an odd lane count -- against the JAX package too;
   * on the card (`gpu`): K2, K2F, K3 and K3F against their plain forms
     on the case's levels and residuals, and the dense phase through the
-    kernels against the plain dense phase.
+    kernels against the plain dense phase; K23 (dense_compose's one
+    pass) on every shape and variant, on levels at every copy width's
+    alignment, and launched by a chain tick in place of K2 and K3.
 """
 
 import numpy as np
@@ -29,7 +33,7 @@ import torch
 from espflix_tpu_torch.models import mpeg1 as TM
 from espflix_tpu_torch.ops import idct as TI
 from espflix_tpu_torch.ops import mocomp as TMC
-from espflix_tpu_torch.tools.dense_cases import SHAPES, dense_case
+from espflix_tpu_torch.tools.dense_cases import SHAPES, VARIANTS, dense_case
 
 try:
     import jax.numpy as jnp
@@ -45,8 +49,15 @@ torch.set_num_threads(1)
 IDS = [f"{w}x{h}" for w, h in SHAPES]
 
 
-def _case(shape):
-    return dense_case(200 + SHAPES.index(shape), *shape)
+def _case(shape, variant="mixed", n_lanes=4):
+    return dense_case(200 + SHAPES.index(shape), *shape, n_lanes=n_lanes,
+                      variant=variant)
+
+
+# K23's cases: each variant on 4 lanes, and the mixed one on 5 (an odd
+# lane count)
+FUSED = [(v, 4) for v in VARIANTS] + [("mixed", 5)]
+FUSED_IDS = [f"{v}-{n}lanes" for v, n in FUSED]
 
 
 def _t(a, device="cpu"):
@@ -101,6 +112,42 @@ def test_dense_compose_matches_jax(shape):
         assert np.array_equal(tf[k].numpy(), np.asarray(jf[k])), k
     for k in "yuv":
         assert np.array_equal(tp[k].numpy(), np.asarray(jp[k])), k
+
+
+@pytest.mark.parametrize("variant,n_lanes", FUSED[1:], ids=FUSED_IDS[1:])
+def test_dense_compose_variants_match_jax(variant, n_lanes):
+    """dense_compose's plain path (K2 + K3 plain forms, what K23 is held
+    to on the card) vs the JAX coeffs_T path on K23's other cases at the
+    bench's width: an I tick, stray levels past nfinal, 5 lanes."""
+    shape = SHAPES[1]
+    c = _case(shape, variant, n_lanes)
+    mbw, mbh = shape
+    jf, jp = JM.dense_compose(
+        None, *[jnp.asarray(c[k]) for k in ("recs", "nfinal", "iq", "nq",
+                                           "active")],
+        {k: jnp.asarray(v) for k, v in c["frames"].items()},
+        mb_width=mbw, mb_height=mbh, coeffs_T=jnp.asarray(c["coeffs_T"]))
+    tf, tp = TM.dense_compose(*_dense_args(c, "coeffs_T"), _frames(c),
+                              mb_width=mbw, mb_height=mbh)
+    for k in ("y", "u", "v", "parity"):
+        assert np.array_equal(tf[k].numpy(), np.asarray(jf[k])), k
+    for k in "yuv":
+        assert np.array_equal(tp[k].numpy(), np.asarray(jp[k])), k
+
+
+def test_variants_hold_what_they_promise():
+    """The I tick is INTRA on lanes 0, 1 and 3; stray levels fill
+    uncoded blocks and sit beside the DC of non-intra DC shortcuts."""
+    mbw, mbh = SHAPES[1]
+    c = _case(SHAPES[1], "intra")
+    kind = c["recs"] & 3
+    assert (kind[[0, 1, 3]] == 3).all() and (kind[2] == 0).all()
+    s = _case(SHAPES[1], "stray")
+    lev = s["coeffs"].reshape(4, -1, 64)
+    nf = s["nfinal"]
+    intra = np.repeat((s["recs"] & 3) == 3, 6, axis=1)
+    assert (lev[nf == 0] != 0).any(axis=1).all()
+    assert (lev[(nf == 1) & ~intra][:, 1:] != 0).any()
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
@@ -241,8 +288,8 @@ def test_dense_phase_kernels_match_plain_on_card(shape, flat):
 
 @pytest.mark.gpu
 def test_compose_kernels_refuse_misaligned_frames_on_card():
-    """K3 and K3F move 16-byte vectors: a frames tensor that starts off
-    a 16-byte boundary is refused before the launch."""
+    """K3, K3F and K23 move 16-byte vectors: a frames tensor that starts
+    off a 16-byte boundary is refused before the launch."""
     dev = _card()
     c = _case(SHAPES[0])
     mbw, mbh = SHAPES[0]
@@ -256,3 +303,83 @@ def test_compose_kernels_refuse_misaligned_frames_on_card():
         with pytest.raises(ValueError, match="16-byte"):
             fn(_t(res, dev), _t(c["recs"], dev), _t(c["active"], dev), fr,
                mb_width=mbw, mb_height=mbh)
+    with pytest.raises(ValueError, match="16-byte"):
+        TMC.idct_compose_put(*_dense_args(c, "coeffs_T", dev), fr,
+                             mb_width=mbw, mb_height=mbh)
+
+
+def _dense_on(c, device, coeffs_T=None):
+    """dense_compose on `device`: frames (both slots, parity) and the
+    presented planes, on the CPU."""
+    mbw, mbh = c["mb_width"], c["mb_height"]
+    args = _dense_args(c, "coeffs_T", device)
+    if coeffs_T is not None:
+        args[0] = coeffs_T
+    fr, pres = TM.dense_compose(*args, _frames(c, device), mb_width=mbw,
+                                mb_height=mbh)
+    return {**{k: fr[k].cpu() for k in ("y", "u", "v", "parity")},
+            **{f"presented_{k}": pres[k].cpu() for k in "yuv"}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,n_lanes", FUSED, ids=FUSED_IDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_fused_kernel_matches_plain_on_card(shape, variant, n_lanes):
+    """K23 (dense_compose on the card) against K2's plain form then K3's:
+    both frame slots, parity and the presented planes.  The cases hold
+    intra DCs, +-2048 clips and int16-wrapping residuals, vectors at and
+    past all four edges in every half-pel phase, STALE MBs, an inactive
+    and an all-STALE lane; mb_width 1, 22 and 64 take K23's 2-, 4- and
+    8-int16 copies."""
+    dev = _card()
+    c = _case(shape, variant, n_lanes)
+    before = (TMC.launches_fused, TI.launches, TMC.launches)
+    got = _dense_on(c, dev)
+    assert (TMC.launches_fused, TI.launches, TMC.launches) == (
+        before[0] + 1, before[1], before[2])
+    want = _dense_on(c, "cpu")
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2], ids=["V1", "V2"])
+def test_fused_kernel_takes_misaligned_levels_on_card(offset):
+    """Levels that start `offset` int16 past a 16-byte boundary take
+    K23's 1- and 2-int16 copies at the bench's width (whose rows allow
+    4): equal to the plain path."""
+    dev = _card()
+    c = _case(SHAPES[1], "stray")
+    ct = _t(c["coeffs_T"], dev)
+    buf = torch.empty(ct.numel() + 8, dtype=torch.int16, device=dev)
+    view = buf[offset:offset + ct.numel()].view(ct.shape)
+    view.copy_(ct)
+    assert view.data_ptr() % 16 == 2 * offset
+    got = _dense_on(c, dev, view)
+    want = _dense_on(c, "cpu")
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k
+
+
+@pytest.mark.gpu
+def test_chain_tick_launches_fused_kernel_on_card():
+    """A chain tick on the card decodes through K23 alone: its counter
+    moves, K2's and K3's do not."""
+    dev = _card()
+    from espflix_tpu_torch.models import sbc as dsbc
+    from espflix_tpu_torch.ops import delta_sigma as DS
+    from espflix_tpu_torch.runtime import chain as CH
+    from espflix_tpu_torch.runtime.workload import bench_chunk
+    xs_np, kw, _ = bench_chunk(8)
+    xs = CH.xs_to_torch({k: v[:1] for k, v in xs_np.items()}, dev)
+    N, mbw, mbh = 8, kw["mb_width"], kw["mb_height"]
+    frames = TM.init_frame_state(N, mbw * 16, mbh * 16, dev)
+    tap = torch.zeros(1, dtype=torch.int32, device=dev)
+    before = (TMC.launches_fused, TI.launches, TMC.launches)
+    _fr, _sb, _ds, outs = CH.run_full_chunk(
+        xs, frames, dsbc.init_state(N, dev), DS.init_state(N, dev), tap,
+        None, **dict(kw, tap=1, return_planes=True))
+    torch.cuda.synchronize()
+    assert not outs["err"].any()
+    assert (TMC.launches_fused, TI.launches, TMC.launches) == (
+        before[0] + 1, before[1], before[2])
