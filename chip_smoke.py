@@ -2108,9 +2108,9 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
                       output=True, device=dev)
         with HostPool(n, W, 8192, fleet.mb_w, fleet.mb_h) as pool:
             t0 = time.perf_counter()
+            if not all(pool.attach_many(range(n), url_)):
+                raise AssertionError(f"{label}: a lane's bootstrap failed")
             for i in range(n):
-                if not pool.attach(i, url_):
-                    raise AssertionError(f"{label}: lane {i} bootstrap")
                 pool.call(i, "nav", i % 2)
                 pool.call(i, "play_pause")
             attach_s = time.perf_counter() - t0
@@ -2118,6 +2118,7 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
             torch.cuda.synchronize()
             fleet.timers.acc.clear()
             reset_counts()
+            worker_us = fleet.counters["pool.worker_us"]
             rs = []
             t0 = time.perf_counter()
             for _ in range(n_ticks // 4):
@@ -2128,9 +2129,12 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
             counts = read_counts(label, CHAIN_KERNELS)
             info, pids = check_workers(label, pool)
             start_s = pool.start_s
-            # the warm-up chunk's 4 ticks are in pool.timing too
-            pt = {k: round(1000 * v / pool.timing["ticks"], 2)
-                  for k, v in pool.timing.items() if k != "ticks"}
+        # the slowest worker's own gather, the wait for every reply and
+        # the join of the shards
+        pt = {k: round(1000 * fleet.timers.acc[k] / n_ticks, 2)
+              for k in ("pool_gather.wait", "pool_gather.join")}
+        pt["worker"] = round(
+            (fleet.counters["pool.worker_us"] - worker_us) / 1e3 / n_ticks, 2)
         split = {k: round(1000 * v / n_ticks, 2) for k, v in
                  telemetry.top_level(fleet.timers.acc).items()}
         frames = sum(int(r.video_lanes.sum()) for r in rs)
@@ -2144,7 +2148,7 @@ def pooled_phase(dev, url: str, file_url: str, lanes: int, smi: str,
             f"warm-up), W = {W}: {1000 * wall / n_ticks:.2f} ms/tick wall "
             f"(33.3 ms is one tick at 30 fps); timers ms/tick {split}; "
             f"untimed {1000 * wall / n_ticks - sum(split.values()):.2f} "
-            f"ms/tick; pool ms/tick (warm-up included) {pt}; frames "
+            f"ms/tick; pool ms/tick {pt}; frames "
             f"{frames}; workers up in {start_s:.2f} s, "
             f"attach {attach_s:.1f} s, worker RSS (peak, else now) "
             f"{rss} KiB ({info[0]}), "

@@ -36,10 +36,10 @@ A third parser, "hybrid" (scheduler.py:160-163, 570-582), entropy-
 decodes on the host with the native tokenizer (tools/oracle.py) and runs
 the lane-minor dense phase (K2F, K3F) on the fleet's device; without the
 tokenizer library the fleet falls back to "device", as the JAX Fleet
-does.  Host gather (runtime/host_gather.py, shared with the HostPool
-workers): native session feeds (streaming/native_feed.py) pop
-fleet-wide in one ctypes call a pump round, and
-run_chunk_full pops them straight into the batch layout
+does.  Host gather (runtime/packed_gather.py and runtime/host_gather.py,
+shared with the HostPool workers): native session feeds
+(streaming/native_feed.py) pop fleet-wide in one ctypes call a pump
+round, and run_chunk_full pops them straight into the batch layout
 (_gather_batch_packed, timer "gather_packed") and drains their SBC rings
 in one call; the other lanes take the classic gather.  On the packed
 path a lane whose Streamer has a regular file open reads from a
@@ -65,7 +65,12 @@ call) inside; batch_assemble with the copy to the device, upload,
 inside; chain_enqueue, the host's enqueue of the chain; host_sync with
 the copies to the host, readback, inside (while tracing, after a
 synchronisation, so readback times the copies alone); control, an
-apply_keys call between chunks.  Fleet.counters holds the session
+apply_keys call between chunks.  A pooled chunk spans pool_gather (a
+tick's fan-out to the joined shards, with pool_gather.wait and
+pool_gather.join inside), batch_assemble (the regroup, the stack and
+upload) and present (a tick's presentation round trip), and counts
+the pool's pool.worker_us, pool.worker_us_sum, pool.reply_bytes and
+pool.ticks.  Fleet.counters holds the session
 feed's running totals (feed.bytes_read, feed.mapped_bytes, feed.rounds,
 feed.lane_ticks, feed.underruns, feed.trick_lane_ticks,
 feed.slow_lane_ticks, feed.attaches) and the control's (control.keys,
@@ -91,15 +96,12 @@ from espflix_tpu_torch.parallel import mesh as PM
 from espflix_tpu_torch.runtime import chain as CH
 from espflix_tpu_torch.runtime import chunk_layout as CL
 from espflix_tpu_torch.runtime import host_gather as HG
+from espflix_tpu_torch.runtime import packed_gather as PG
 from espflix_tpu_torch.runtime import telemetry
 from espflix_tpu_torch.runtime.events import Ev, EventLog
 from espflix_tpu_torch.runtime.input import dispatch_key
 from espflix_tpu_torch.runtime.output import OutputStage
-from espflix_tpu_torch.runtime.player import READ_CHUNK, PlayerSession, \
-    State
-from espflix_tpu_torch.streaming import native_feed as NF
-from espflix_tpu_torch.streaming import native_pump as NP
-from espflix_tpu_torch.streaming import title_maps as TMAP
+from espflix_tpu_torch.runtime.player import PlayerSession, State
 
 
 @dataclass
@@ -165,13 +167,6 @@ def bucket_policy(need: int, ns_rows: int, *, steps_long: int,
 
 
 _PUMP_STATES = HG.PUMP_STATES
-_MAX_PUMPS = 64                 # PlayerSession.next_picture's max_pumps
-_TRICK_STATES = (State.FAST_FORWARD, State.REWIND)
-
-
-def _pump_patched(s) -> bool:
-    """Whether a session's pump() is overridden (subclass or patch)."""
-    return "pump" in s.__dict__ or type(s).pump is not PlayerSession.pump
 
 
 # the mesh slice scan's row inputs, in the decoder's argument order
@@ -239,8 +234,12 @@ class Fleet:
             # fleet's lifetime
             self.chain = CH.FullChain(pal=pal, n_aud_frames=self.audio_F,
                                       device=self.device)
-        self._packed = None
-        self._titles = None       # streaming/title_maps.TitleMaps
+        # the served gather: its batch buffers, title mappings and
+        # policies (runtime/packed_gather.py)
+        self._pg = PG.PackedGather(
+            n_lanes, geometry=(width, height),
+            words_per_lane=words_per_lane, mb_w=self.mb_w, mb_h=self.mb_h,
+            log=self.events.log, counters=self.counters)
         # the device parser's symbol budget (scheduler.py:164-181)
         max_steps = min(words_per_lane * 32, 12000)
         if mesh is not None:
@@ -358,241 +357,43 @@ class Fleet:
                 ok += bool(self.sessions[i].restore(snap))
         return ok
 
-    # -- host gather ----------------------------------------------------
-    def _admit(self, i, s, width: int, height: int, payload_len: int,
-               n_slices: int, pre_errors) -> bool:
-        """host_gather.admit for this fleet's geometry and capacity,
-        logging to its event log."""
-        return HG.admit(self.events.log, i, s, width, height, payload_len,
-                        n_slices, geometry=(self.width, self.height),
-                        words_per_lane=self.words_per_lane,
-                        max_slices=self.mb_h, pre_errors=pre_errors)
+    # -- host gather (runtime/packed_gather.py) -------------------------
+    @property
+    def _packed(self):
+        """The packed gather's batch buffers (None before its first
+        tick)."""
+        return self._pg.packed
+
+    @property
+    def _titles(self):
+        """The packed gather's title mappings (None before its first
+        tick)."""
+        return self._pg.titles
+
+    def _gather(self) -> PG.PackedGather:
+        """The packed gather, with the fleet's timers, geometry and lane
+        capacity as they are now (a caller may replace them after
+        construction)."""
+        pg = self._pg
+        pg.measure = self.timers.measure
+        pg.width, pg.height = self.width, self.height
+        pg.words_per_lane = self.words_per_lane
+        return pg
 
     def _gather_pictures(self):
         """One display-tick of host work (host_gather.gather_pictures):
         advance every session's clock, pull at most one complete picture
         per lane (native lanes in one pop call a pump round) and apply
         the containment policies in lane order."""
-        if self._titles is not None:
-            # the sessions' Streamers read again: hand the cursors back
-            self._titles.release()
-        return HG.gather_pictures(
-            self.sessions, self.events.log,
-            geometry=(self.width, self.height),
-            words_per_lane=self.words_per_lane, max_slices=self.mb_h,
-            tally=self.counters,
-            measure=self.timers.measure)
-
-    # -- packed gather (native pops straight into the batch layout) ------
-    def _ensure_packed(self):
-        if self._packed is None:
-            self._packed = NF.PackedBatch(self.n, self.words_per_lane,
-                                          self.mb_h, self.mb_w, self.mb_h)
-            self._titles = TMAP.TitleMaps(self.n, READ_CHUNK)
-        return self._packed
+        return self._gather().pictures(self.sessions)
 
     def _gather_batch_packed(self):
         """The packed twin of _gather_pictures + make_picture_batch
-        (scheduler.py:386-565): one sf_pop_pictures_packed call per pump
-        round writes every popped payload straight into the fleet's
-        persistent batch buffers (EOS pad, byteswap and stale-row
-        zeroing in C++), one sf_feed_many call feeds the lanes that
-        pumped.  Pictures the policies must see (rejected by geometry or
-        size, popped through the growable per-lane path, or from lanes
-        off the fast path) are checked after the rounds in lane order,
-        so the events come out as _gather_pictures logs them.  Returns
-        (batch_dict, pts, pre_errors), or None when the native feed is
-        not built or no lane is on the fast path (the caller falls back
-        to the classic gather).
-
-        A fast lane whose pump is not overridden and whose Streamer has
-        a regular file open reads from a read-only mapping of that file
-        (streaming/title_maps.py; titles are immutable while served),
-        checked once a tick.  Those lanes run their pump rounds in ONE
-        threaded native call (streaming/native_pump.py, span
-        "gather.pop"): pops, mapped reads and feeds, each lane on its
-        own, stopping at a picture, a capacity rc or its title's end;
-        the results then take the same vectorised path as a round's
-        pops.  The other lanes read through their Streamer or their
-        patched pump, round by round: each round spans its pop
-        ("gather.pop"), the Python reads ("gather.read", which also
-        holds the tick's attach check and the EOS branch of lanes at
-        their end) and the feed call ("gather.feed").  The tick's feed
-        counts go to Fleet.counters; ``feed.rounds`` is the most pops a
-        lane made."""
-        if not NF.available():
-            return None
-        fast, slow = HG.fast_lanes(self.sessions)
-        if not fast:
-            if self._titles is not None:
-                self._titles.release()
-            return None
-        span = self.timers.measure
-        n_slow = sum(s.state in _PUMP_STATES for _, s in slow)
-        playing = len(fast) + n_slow
-        trick = sum(s.state in _TRICK_STATES for _, s in fast + slow)
-        n_read = n_mapped = rounds = 0
-        pb = self._ensure_packed()
-        tm = self._titles
-        with span("gather.read"):
-            mapped = [(i, s) for i, s in fast
-                      if not (s.eos or _pump_patched(s))]
-            attached = tm.sync([i for i, _ in mapped],
-                               [s.streamer for _, s in mapped],
-                               [s.feed._lane for _, s in mapped])
-        for s in self.sessions:
-            if s is not None:
-                s.clock.tick()
-        pb.begin_tick()
-        pre_errors = np.zeros(self.n, bool)
-        # (lane, session, width, height, payload bytes, slices, picture
-        # to merge or None when the native pop already consumed it)
-        checks = []
-        on_map = tm.src[[i for i, _ in fast]] >= 0
-        native = [fast[k] for k in np.flatnonzero(on_map)]
-        pending = [fast[k] for k in np.flatnonzero(~on_map)]
-        if native:
-            # the lanes on a title mapping: ONE threaded native call runs
-            # each one's pump rounds (streaming/native_pump.py)
-            slots_n = np.fromiter((i for i, _ in native), np.int32,
-                                  len(native))
-            with span("gather.pop"):
-                r = NP.get_pump().run(pb, tm, slots_n, _MAX_PUMPS)
-            rounds = int(r.rounds.max())
-            n_read = n_mapped = int(r.fed.sum())
-            self._take_pops(pb, native, slots_n,
-                            tm.nlane[slots_n].astype(np.int64), r.rc,
-                            r.meta, r.iq8, r.nq8, checks)
-            ends = np.flatnonzero(r.ended)
-            if len(ends):
-                # lanes at their title's end: the EOS branch
-                with span("gather.read"):
-                    for k in ends:
-                        i, s = native[k]
-                        s.feed.eos()
-                        s.eos = True
-                        self._last_pop(i, s, checks)
-        for py_rounds in range(1, _MAX_PUMPS + 1):
-            if not pending:
-                break
-            rounds = max(rounds, py_rounds)
-            feeds = [s.feed for _, s in pending]
-            slots = [i for i, _ in pending]
-            with span("gather.pop"):
-                rc, meta, iq8, nq8 = NF.pop_many_packed(pb, feeds, slots)
-            self._take_pops(pb, pending, np.asarray(slots, np.int32),
-                            np.fromiter((f._lane for f in feeds), np.int64,
-                                        len(feeds)),
-                            rc, meta, iq8, nq8, checks)
-            keep = np.zeros(len(pending), bool)   # pumped: pop again
-            # one streamer read per starved lane; a patched pump() stays
-            # the per-lane override point
-            bat_f, bat_d = [], []
-            with span("gather.read"):
-                for k in np.flatnonzero(rc == 0):
-                    i, s = pending[k]
-                    if _pump_patched(s):
-                        b0 = s.bytes_read
-                        pumped = s.pump()
-                        n_read += s.bytes_read - b0
-                        if pumped:
-                            keep[k] = True
-                            continue
-                    elif not s.eos:
-                        data = s.streamer.read(READ_CHUNK)
-                        if data:
-                            bat_f.append(s.feed)
-                            bat_d.append(data)
-                            keep[k] = True
-                            continue
-                        s.feed.eos()
-                        s.eos = True
-                    self._last_pop(i, s, checks)
-            # ONE native feed call for the round (sf_feed_many)
-            with span("gather.feed"):
-                NF.feed_many(bat_f, bat_d)
-            n_read += sum(map(len, bat_d))
-            pending = [pending[k] for k in np.flatnonzero(keep)]
-        read0 = HG.read_total(s for _, s in slow)
-        for i, s in slow:
-            p = s.next_picture()
-            if p is not None:
-                checks.append(self._check_of(i, s, p))
-        n_read += HG.read_total(s for _, s in slow) - read0
-        for i, s, w, h, plen, nsl, p in sorted(checks, key=lambda c: c[0]):
-            if self._admit(i, s, w, h, plen, nsl, pre_errors) \
-                    and p is not None:
-                pb.merge_picture(i, p)
-        HG.add_counts(self.counters, {
-            "feed.bytes_read": n_read, "feed.mapped_bytes": n_mapped,
-            "feed.rounds": rounds, "feed.lane_ticks": playing,
-            "feed.underruns": playing - int(pb.active.sum()),
-            "feed.trick_lane_ticks": trick, "feed.slow_lane_ticks": n_slow,
-            "feed.attaches": attached})
-        return pb.batch_dict(), pb.pts.copy(), pre_errors
-
-    def _take_pops(self, pb, lanes, slots_a, nlanes, rc, meta, iq8, nq8,
-                   checks):
-        """The packed pops' results for `lanes` ((lane, session) at fleet
-        slots `slots_a`, native feed lanes `nlanes`): rc 1 with geometry
-        and capacity in bounds goes to pb's vectors at once; a picture
-        rejected, or one the packed pop could not hold (rc < 0, popped
-        here through the growable per-lane path), goes to `checks`."""
-        got = rc == 1
-        if got.any():
-            assert (meta[got, NF.M_WIDTH] > 0).all(), \
-                "picture before sequence header"
-            okg = ((meta[:, NF.M_WIDTH] == self.width)
-                   & (meta[:, NF.M_HEIGHT] == self.height))
-            okc = HG.fits(meta[:, NF.M_PAYLOAD_LEN], meta[:, NF.M_NSLICES],
-                          self.words_per_lane, self.mb_h)
-            good = got & okg & okc
-            keys = (nlanes << 44) | meta[:, NF.M_SEQ_COUNTER]
-            for k in np.flatnonzero(good & (pb.qkey[slots_a] != keys)):
-                m = meta[k]
-                pb.set_queues(int(slots_a[k]), lanes[k][1].feed,
-                              bool(m[NF.M_HAS_IQ]), bool(m[NF.M_HAS_NQ]),
-                              iq8[k], nq8[k], int(m[NF.M_SEQ_COUNTER]),
-                              qkey=int(keys[k]))
-            si = slots_a[good]
-            pb.pic_type[si] = meta[good, NF.M_PTYPE]
-            pb.full_pel[si] = meta[good, NF.M_FULL_PEL]
-            pb.r_size[si] = np.maximum(meta[good, NF.M_R_SIZE], 0)
-            pb.n_slices[si] = meta[good, NF.M_NSLICES]
-            pb.active[si] = True
-            pb.pts[si] = meta[good, NF.M_PTS]
-            for k in np.flatnonzero(got & ~(okg & okc)):
-                # consumed but rejected: the row holds its words, the
-                # lane stays inactive as in make_picture_batch
-                m = meta[k]
-                i = int(slots_a[k])
-                pb.n_words[i] = 0
-                checks.append((i, lanes[k][1], int(m[NF.M_WIDTH]),
-                               int(m[NF.M_HEIGHT]),
-                               int(m[NF.M_PAYLOAD_LEN]),
-                               int(m[NF.M_NSLICES]), None))
-        for k in np.flatnonzero(rc < 0):
-            # capacity: the picture was NOT consumed; pop it through the
-            # growable per-lane path
-            i, s = lanes[k]
-            p = s.feed.pop_picture()
-            if p is not None:
-                checks.append(self._check_of(i, s, p))
-
-    def _last_pop(self, i, s, checks):
-        """A lane that pumped nothing: its last picture to check, or
-        DONE with its position saved (next_picture's EOS branch)."""
-        p = s.feed.pop_picture()
-        if p is None:
-            s.state = State.DONE
-            s.save_pos(False)
-        else:
-            checks.append(self._check_of(i, s, p))
-
-    @staticmethod
-    def _check_of(i, s, p):
-        return (i, s, p.seq.width, p.seq.height, len(p.payload),
-                len(p.slice_offsets), p)
+        (packed_gather.PackedGather.gather): (batch_dict, pts,
+        pre_errors), or None when the native feed is not built or no
+        lane is on the fast path (the caller falls back to the classic
+        gather).  The tick's feed counts go to Fleet.counters."""
+        return self._gather().gather(self.sessions)
 
     # -- one decode tick (decode-only fleet) ------------------------------
     def tick(self, decode_audio: bool = True,
@@ -1207,13 +1008,20 @@ class Fleet:
         """run_chunk_full with the sessions on a HostPool
         (runtime/hostpool.py; scheduler.py:1382-1552): the per-tick
         control plane (pump, demux, segmentation, slice packing) runs in
-        the pool's worker processes; this process concatenates their
-        shard blobs, regroups the per-worker span-sorted rows into the
-        global long and short buckets (chunk_layout.regroup_workers)
-        and runs the same FullChain on the fleet's device, with the OSD,
-        beep and slide state of this fleet's OutputStage (drive it via
-        pool.call and fleet.output).  Presentation and resync route back
-        to the workers after the chunk.  TickResult planes are None."""
+        the pool's worker processes, each through the packed gather
+        (runtime/packed_gather.py); this process concatenates their
+        shard blobs (span ``pool_gather``, with ``pool_gather.wait`` and
+        ``pool_gather.join`` inside), regroups the per-worker
+        span-sorted rows into the global long and short buckets
+        (chunk_layout.regroup_workers, in ``batch_assemble``) and runs
+        the same FullChain on the fleet's device, with the OSD, beep and
+        slide state of this fleet's OutputStage (drive it via pool.call
+        and fleet.output).  Presentation and resync route back to the
+        workers after the chunk (span ``present``, the chunk's one round
+        trip).  Presented planes stay on the device, as in
+        run_chunk_full.  Fleet.counters adds the workers' feed counts
+        and the pool's (``pool.worker_us``, ``pool.worker_us_sum``,
+        ``pool.reply_bytes``, ``pool.ticks``)."""
         assert self.output is not None and self.parser == "pallas" \
             and self.mesh is None, \
             "run_chunk_full_pooled needs Fleet(output=True, parser=" \
@@ -1226,9 +1034,10 @@ class Fleet:
         meta = []
         need_long = 8
         for _ in range(n_ticks):
-            with self.timers.measure("batch_assemble"):
-                g = pool.gather_tick(F)
+            with self.timers.measure("pool_gather"):
+                g = pool.gather_tick(F, self.timers.measure)
             HG.add_counts(self.counters, g["feed"])
+            HG.add_counts(self.counters, g["pool"])
             for ev, lane, value in g["ev_pic"] + g["ev_aud"]:
                 self.events.log(Ev(ev), lane, value=value)
             need_long = max(need_long, g["n_i"] * mbh)
@@ -1262,7 +1071,7 @@ class Fleet:
                 tap_idx, mb_width=self.mb_w, mb_height=self.mb_h,
                 n_lanes=self.n, long_rows=long_rows, steps_long=steps_long,
                 steps_short=steps_short, tap=tap, channels=ch,
-                return_planes=False, win=win,
+                return_planes=True, win=win,
                 chunk=min(chunk, steps_short), scrolled=scrolled,
                 slide=slide)
 
@@ -1273,20 +1082,23 @@ class Fleet:
                 errs, fsum, psum, audio_errs, tap_f, tap_p = \
                     self._chain_outs_to_host(outs, tap)
 
+        errors = [errs[t] | g["pre_errors"] for t, g in enumerate(meta)]
+        with self.timers.measure("present"):
+            resynced = [set(r) for r in pool.present(
+                [g["pts"] for g in meta], errors)]
         results = []
         for t, g in enumerate(meta):
-            errors = errs[t] | g["pre_errors"]
-            resynced = set(pool.present(g["pts"], errors))
-            for i in np.flatnonzero(g["video"] & errors):
+            for i in np.flatnonzero(g["video"] & errors[t]):
                 self.events.log(Ev.LANE_ERROR, int(i))
-                if i in resynced:
+                if i in resynced[t]:
                     self.events.log(Ev.LANE_RESYNC, int(i))
             for i in np.flatnonzero(audio_errs[t]):
                 self.events.log(Ev.AUDIO_ERROR, int(i))
             results.append(TickResult(
-                g["video"], None, None, None, g["pts"], errors,
-                audio_lanes=g["aud_act"], pcm=None, pcm_samples=None,
-                audio_starved=g["starved"], audio_errors=audio_errs[t],
+                g["video"], outs["y"][t], outs["u"][t], outs["v"][t],
+                g["pts"], errors[t], audio_lanes=g["aud_act"], pcm=None,
+                pcm_samples=None, audio_starved=g["starved"],
+                audio_errors=audio_errs[t],
                 field_sum=fsum[t], pdm_sum=psum[t],
                 tap_fields=tap_f[t] if tap else None,
                 tap_pdm=tap_p[t] if tap else None))

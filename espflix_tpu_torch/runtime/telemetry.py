@@ -27,8 +27,12 @@ CUDA event or synchronises: only the counters count.
   (keys applied), ``control.seeks`` (those after which the lane's
   stream reopened) and ``control.seek_wait`` (lane-ticks from a seek up
   to and including the lane's first presented picture, counted where
-  run_chunk_full presents a chunk's results).  ``delta`` is a
-  stretch's share of them.
+  run_chunk_full presents a chunk's results).  A pooled chunk
+  (Fleet.run_chunk_full_pooled) adds its workers' ``feed.*`` counts and
+  the pool's: ``pool.worker_us`` (the slowest worker's own gather a
+  tick, in microseconds), ``pool.worker_us_sum`` (every worker's),
+  ``pool.reply_bytes`` (the pickled replies received) and
+  ``pool.ticks``.  ``delta`` is a stretch's share of them.
 - ``ChainSpans``: the chain's spans per stage for one FullChain call
   while tracing (runtime/chain.py): a mark before the first tick and at
   the end of each stage (CUDA events on a card, the host clock on the
@@ -66,9 +70,10 @@ from espflix_tpu_torch.runtime import events
 
 STAGES = ("scan", "idct+compose", "composite", "sbc", "pdm")
 # Fleet.timers' spans that lie inside another of its spans: gather.*
-# inside gather_packed (or gather), upload inside batch_assemble,
-# readback inside host_sync
-NESTED = ("gather.pop", "gather.read", "gather.feed", "upload", "readback")
+# inside gather_packed (or gather), pool_gather.* inside pool_gather,
+# upload inside batch_assemble, readback inside host_sync
+NESTED = ("gather.pop", "gather.read", "gather.feed", "pool_gather.wait",
+          "pool_gather.join", "upload", "readback")
 RECORDS: deque = deque(maxlen=256)
 
 

@@ -1,7 +1,7 @@
 """A lane-parallel pump for the served gather's mapped lanes: ctypes
 facade over streaming/native_pump.cpp.
 
-Fleet._gather_batch_packed (runtime/scheduler.py) hands every lane that
+The served gather (runtime/packed_gather.py) hands every lane that
 reads from a title mapping (streaming/title_maps.py) to ONE ``Pump.run``
 call a tick.  Each lane runs the gather's pump rounds on its own: pop
 its next picture straight into the batch layout (the session feed's
@@ -18,8 +18,9 @@ bit-identical (tests/test_torch_native_feed.py).
 Lanes share no state in the feed library, so threads split them: the
 process's pool (``get_pump``) keeps workers that sleep on a condition
 variable between calls; a call wakes as many as its lanes warrant
-(``_threads``), and they take lanes in small blocks beside the calling
-thread.  The ctypes call drops the GIL; no Python runs on the workers.
+(``_threads``; a HostPool worker caps them at its share of the CPUs),
+and they take lanes in small blocks beside the calling thread.  The
+ctypes call drops the GIL; no Python runs on the workers.
 The pool is joined at exit.
 
 The library builds at first use with g++ into
@@ -115,10 +116,12 @@ class Pump:
         if h is not None:
             self.L.np_pool_destroy(h)
 
-    def run(self, pb: NF.PackedBatch, tm, slots, max_rounds: int):
+    def run(self, pb: NF.PackedBatch, tm, slots, max_rounds: int,
+            cpus: int | None = None):
         """Pump the mapped lanes at fleet slots `slots` (each attached in
-        TitleMaps `tm`; its cursor advances in place) into `pb`'s rows.
-        Returns a PumpResult in the order of `slots`."""
+        TitleMaps `tm`; its cursor advances in place) into `pb`'s rows,
+        on at most `cpus` threads (None: every CPU this process may run
+        on).  Returns a PumpResult in the order of `slots`."""
         slots = np.ascontiguousarray(slots, np.int32)
         n = len(slots)
         out = PumpResult(n)
@@ -132,8 +135,9 @@ class Pump:
                       (pb.slice_starts, np.int32),
                       (pb.slice_rows, np.int32)):
             assert a.dtype == dt and a.flags.c_contiguous
+        threads = _threads(n) if cpus is None else min(cpus, _threads(n))
         out.threads = self.L.np_pump(
-            self.handle, _threads(n), self._pop, self._feed,
+            self.handle, threads, self._pop, self._feed,
             NF.get_pool().handle, n, slots.ctypes.data,
             tm.nlane.ctypes.data, tm.base.ctypes.data, tm.pos.ctypes.data,
             tm.end.ctypes.data, tm.chunk, max_rounds,

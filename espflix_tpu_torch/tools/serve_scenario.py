@@ -371,9 +371,9 @@ def run_pooled(args, url: str):
                   output=True, device=args.device)
     with HostPool(args.lanes, args.workers, 8192, fleet.mb_w,
                   fleet.mb_h) as pool:
+        if not all(pool.attach_many(range(args.lanes), url)):
+            raise RuntimeError("service bootstrap failed")
         for i in range(args.lanes):
-            if not pool.attach(i, url):
-                raise RuntimeError("service bootstrap failed")
             pool.call(i, "nav", i % args.titles)
             pool.call(i, "play_pause")
         K = 4
@@ -382,8 +382,8 @@ def run_pooled(args, url: str):
         t0 = time.time()
         t = 0
         while t < args.ticks:
-            for lane in range(args.lanes):
-                if pool.state(lane) == "DONE":
+            for lane, state in enumerate(pool.states()):
+                if state == "DONE":
                     pool.call(lane, "menu")
                     pool.call(lane, "nav", int(rng.integers(0, args.titles)))
                     pool.call(lane, "play_pause")

@@ -3,10 +3,12 @@ Fleet.run_chunk_full_pooled on the CPU.
 
 Two lanes on two worker processes, three ticks: every TickResult field
 the pooled chain returns (video lanes, pts, error flags, checksums, the
-tapped lane's fields and PDM words, audio flags) equals in-process
-run_chunk_full on the same service, as tests/test_hostpool.py holds the
-JAX package's pool, and equals the JAX package's own HostPool +
-Fleet.run_chunk_full_pooled on that service, field for field;
+tapped lane's fields and PDM words, audio flags, and the presented
+planes it keeps on the device) equals in-process run_chunk_full on the
+same service, as tests/test_hostpool.py holds the JAX package's pool,
+and every field but the planes equals the JAX package's own HostPool +
+Fleet.run_chunk_full_pooled on that service (whose pooled path returns
+no planes);
 snapshot/restore round-trips through the pool; each worker runs with
 CUDA_VISIBLE_DEVICES="" and never imports torch; and close() leaves no
 worker running.  Lanes whose pictures the fleet must reject -- a
@@ -37,7 +39,7 @@ torch.set_num_threads(1)
 
 KEYS = ("video_lanes", "pts", "errors", "field_sum", "pdm_sum",
         "tap_fields", "tap_pdm", "audio_lanes", "audio_errors",
-        "audio_starved")
+        "audio_starved", "y", "u", "v")
 
 
 @pytest.fixture(scope="module")
@@ -64,7 +66,11 @@ def _assert_results_equal(ref, got, keys=KEYS):
             if x is None or y is None:
                 assert x is None and y is None, k
             else:
-                assert np.array_equal(np.asarray(x), np.asarray(y)), k
+                assert np.array_equal(_host(x), _host(y)), k
+
+
+def _host(x):
+    return x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
 def _events(fleet):
@@ -131,7 +137,9 @@ def test_pooled_full_chain_matches_inprocess(cpu_pooled):
 def test_pooled_full_chain_matches_jax_pool(service, cpu_pooled):
     """The JAX package's HostPool + run_chunk_full_pooled on the same
     service, 2 lanes / 2 workers / 3 ticks (tests/test_hostpool.py):
-    every TickResult field equals the port's pooled run exactly."""
+    every TickResult field equals the port's pooled run exactly, but
+    the planes, which the JAX pooled path does not return (the port's
+    are held against in-process run_chunk_full in `cpu_pooled`)."""
     from espflix_tpu.runtime.hostpool import HostPool as JHostPool
     from espflix_tpu.runtime.scheduler import Fleet as JFleet
     n = 2
@@ -145,8 +153,11 @@ def test_pooled_full_chain_matches_jax_pool(service, cpu_pooled):
         jgot = jf.run_chunk_full_pooled(pool, 3, tap_lanes=(0,))
     finally:
         pool.close()
+    assert all(r.y is None and r.u is None and r.v is None for r in jgot)
+    assert all(torch.is_tensor(r.y) for r in cpu_pooled)
     _assert_results_equal(
-        jgot, cpu_pooled, [f.name for f in dataclasses.fields(TickResult)])
+        jgot, cpu_pooled, [f.name for f in dataclasses.fields(TickResult)
+                           if f.name not in "yuv"])
 
 
 def _payload_lens(svc_dir: str) -> list[int]:
